@@ -1,0 +1,63 @@
+"""Plain PyTorch versions of the port's kernels, the counterparts of the
+jnp oracles in ``repro.kernels.ref``. They run wherever PyTorch runs: the
+wrappers call them for a CPU tensor, and the tests and ``chip_smoke.py``
+hold each kernel against them.
+
+One case differs from ``repro.kernels.ref`` on purpose: a decode row with
+no valid slot. The Pallas decode kernel zeroes ``p`` where a slot is
+invalid and divides by ``l == 0 -> 1``, so such a row gives 0
+(``repro/kernels/decode_attention.py``); the jnp oracle's softmax over all
+-1e30 is uniform and gives mean(V). Both the port's kernel and this plain
+version compute what the TPU kernel computes: 0.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    *, causal: bool = True) -> torch.Tensor:
+    """q: (B,S,H,D); k,v: (B,S,Hkv,D) -> (B,S,H,D). GQA by head grouping."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, S, Hkv, G, D).float()
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, k.float())
+    scores = scores * (D ** -0.5)
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """q: (B,1,H,D); caches (B,T,Hkv,D); valid (B,T) bool -> (B,1,H,D).
+    A row with no valid slot gives 0, as the TPU kernel does."""
+    B, _, H, D = q.shape
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, D).float()
+    scores = torch.einsum("bhgd,bthd->bhgt", qg,
+                          k_cache.float()) * (D ** -0.5)
+    live = valid[:, None, None, :]
+    scores = torch.where(live, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    probs = p / torch.where(l == 0.0, 1.0, l)
+    out = torch.einsum("bhgt,bthd->bhgd", probs, v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
+            *, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)

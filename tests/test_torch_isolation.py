@@ -1,0 +1,68 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package ``repro``.
+
+A subprocess blocks ``jax`` (``sys.modules["jax"] = None``) and rejects any
+import of ``repro`` / ``repro.*`` with an import hook, then imports every
+module of ``repro_torch`` and ``chip_smoke`` (without running it). A source
+scan backs it up for imports that run only inside functions.
+"""
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "src", "repro_torch")
+
+_CHILD = r'''
+import importlib, importlib.abc, os, pkgutil, sys
+sys.modules["jax"] = None
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "repro" or name.startswith("repro."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+root = sys.argv[1]
+sys.path[:0] = [os.path.join(root, "src"), root]
+import repro_torch
+names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
+assert not bad, bad
+print(len(names))
+'''
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_every_module_imports_without_jax_or_repro():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _CHILD, ROOT],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 40
+
+
+def test_no_jax_or_repro_import_in_sources():
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)"
+                     r"|from\s+(jax|repro)\b(?!_torch))", re.M)
+    hits = []
+    for path in _sources():
+        with open(path) as f:
+            for m in pat.finditer(f.read()):
+                hits.append(f"{os.path.relpath(path, ROOT)}: {m.group(0)}")
+    assert not hits, hits
