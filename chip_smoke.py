@@ -11,14 +11,18 @@ failure, or when there is no card or no checkout beside it. Phases:
    (one ``nvcc`` per CUDA source, all at once, plus the Triton compile).
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, on the sweep shapes of ``tests/test_kernels.py`` and on the
-   serving path's shapes, at 2e-5 (fp32) and 2e-2 (bf16) elementwise, bf16
-   also at BF16_REL_L2 over the whole output; then each timed
-   with CUDA events beside its plain version and one PyTorch library call.
-3. Model: full-width bf16 llama3-3b from a seeded generator; logits
-   through the kernels against the plain versions, and the
-   prefill->decode contract.
+   serving paths' shapes, at 2e-5 (fp32) and 2e-2 (bf16) elementwise, bf16
+   also at BF16_REL_L2 over the whole output, the SSD scan at 2e-4 and the
+   RG-LRU scan at 1e-5; then each timed with CUDA events beside its plain
+   version and, where one exists, one PyTorch library call.
+3. Models: full-width llama3-3b, mamba2-1.3b and recurrentgemma-9b from a
+   seeded generator, one at a time; fp32 logits through the kernels
+   against the plain versions (recurrentgemma-9b cut to 5 layers: a unit
+   and the tail), the prefill->decode contract, and bf16 at full depth
+   judged against fp32.
 4. Serve: ``InferenceEngine`` + ``TorchBackend`` + the AGFT tuner over 8
-   ``normal`` requests; every kernel must have run on that path.
+   ``normal`` requests for each of the three models; each kernel of a
+   model's path must have run there, as many times as the path says.
 
 The last lines are a JSON object with each kernel's numbers and the
 result line ``{"ok": true, "device": {...}}``.
@@ -42,6 +46,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # fp32: no tensor core
 # (rtol, atol): kernels as in tests/test_kernels.py; the fp32 model's
 # prefill and decode against its forward as in tests/test_models_smoke.py
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2),
+       "ssd": (2e-4, 2e-4), "rglru": (1e-5, 1e-5),
        "prefill": (2e-4, 2e-4), "decode": (1e-3, 1e-3)}
 FP32_REL_L2 = 1e-4       # fp32 logits, kernels vs plain versions
 # bf16 kernels vs plain versions, over the whole output: both accumulate in
@@ -57,6 +62,21 @@ SWEEP_DECODE = [(1, 512, 4, 4, 64), (2, 1024, 8, 2, 64), (4, 512, 4, 1, 128)]
 MAIN_DECODE = (8, 2048, 24, 8, 128)
 SWEEP_RMS = [(4, 128), (2, 17, 256), (3, 5, 7, 512)]
 MAIN_RMS = [(8, 3072), (64, 3072)]
+# recurrentgemma-9b's decode: 16 query heads over 1 kv head at head_dim
+# 256, against the 2048-slot ring of its local attention
+WIDE_DECODE = (8, 2048, 16, 1, 256)
+# (b, s, h, p, g, n, chunk): the test_ssd_sweep shapes; mamba2-1.3b's
+# prefill buckets of 1, 2 and 64 tokens (chunk = s); and 256 (chunk 128)
+SWEEP_SSD = [(1, 128, 4, 64, 1, 64, 32), (2, 256, 8, 32, 2, 32, 64),
+             (1, 64, 2, 64, 1, 128, 16), (1, 256, 64, 64, 1, 128, 128)]
+MAIN_SSD = [(1, s, 64, 64, 1, 128, s) for s in (1, 2, 64)]
+# (B, S, W): the test_rglru_sweep shapes; recurrentgemma-9b's width
+SWEEP_RGLRU = [(1, 64, 128), (2, 256, 256), (3, 128, 384)]
+MAIN_RGLRU = [(1, 64, 4096), (1, 256, 4096)]
+MODELS = ("llama3-3b", "mamba2-1.3b", "recurrentgemma-9b")
+# recurrentgemma-9b's fp32 kernels-vs-plain check covers one (rec, rec,
+# attn) unit and the two-layer tail, 5 layers; its bf16 check runs all 38
+HYBRID_FP32_UNITS = 1
 
 
 def fail(msg: str) -> None:
@@ -137,15 +157,18 @@ def randn(torch, gen, shape, dtype):
 def check_kernels(torch, dev):
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as lru
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd
     gen = torch.Generator(device=dev).manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     failures = []
     main_err = {"rmsnorm": 0.0, "flash_attention": 0.0,
-                "decode_attention": 0.0}
+                "decode_attention": 0.0, "ssd_scan": 0.0,
+                "rglru_scan": 0.0}
 
-    def record(name, case, dn, got, want, main):
-        err, ok = close(torch, got, want, dn)
+    def record(name, case, dn, got, want, main, tol=None):
+        err, ok = close(torch, got, want, tol or dn)
         rel = ""
         if dn == "bfloat16":
             e_rel = rel_l2(torch, got, want)
@@ -155,8 +178,21 @@ def check_kernels(torch, dev):
             f" {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} {case} {dn}")
-        if main and dn == "bfloat16":
+        # the main path's error: bf16 where the path runs bf16, else fp32
+        if main and (dn == "bfloat16" or tol):
             main_err[name] = max(main_err[name], err)
+
+    def decode_case(B, T, H, Hkv, D, dt, dn, valid, main):
+        q = randn(torch, gen, (B, 1, H, D), dt)
+        kc = randn(torch, gen, (B, T, Hkv, D), dt)
+        vc = randn(torch, gen, (B, T, Hkv, D), dt)
+        if main:
+            valid[-1] = False                     # the all-invalid row
+        got = dec.decode_attention(q, kc, vc, valid)
+        record("decode_attention", f"B{B} T{T} H{H} Hkv{Hkv} D{D}", dn,
+               got, dec.decode_attention_plain(q, kc, vc, valid), main)
+        if main and bool(got[-1].float().abs().max() != 0):
+            failures.append(f"decode all-invalid row not 0 (D{D} {dn})")
 
     for dn, dt in dtypes.items():
         for shape in SWEEP_RMS + MAIN_RMS:
@@ -174,20 +210,17 @@ def check_kernels(torch, dev):
                    fa.flash_attention_plain(q, k, v, causal=True),
                    (B, S, H, Hkv, D) in MAIN_FLASH)
         for (B, T, H, Hkv, D) in SWEEP_DECODE + [MAIN_DECODE]:
-            q = randn(torch, gen, (B, 1, H, D), dt)
-            kc = randn(torch, gen, (B, T, Hkv, D), dt)
-            vc = randn(torch, gen, (B, T, Hkv, D), dt)
             lengths = torch.randint(1, T + 1, (B,), generator=gen,
                                     device=dev)
             valid = torch.arange(T, device=dev)[None] < lengths[:, None]
-            main = (B, T, H, Hkv, D) == MAIN_DECODE
-            if main:
-                valid[-1] = False                 # the all-invalid row
-            got = dec.decode_attention(q, kc, vc, valid)
-            record("decode_attention", f"B{B} T{T} H{H} Hkv{Hkv} D{D}", dn,
-                   got, dec.decode_attention_plain(q, kc, vc, valid), main)
-            if main and bool(got[-1].float().abs().max() != 0):
-                failures.append(f"decode all-invalid row not 0 ({dn})")
+            decode_case(B, T, H, Hkv, D, dt, dn, valid,
+                        (B, T, H, Hkv, D) == MAIN_DECODE)
+        # recurrentgemma-9b's ring: rows that wrapped it (every slot live)
+        # and rows that did not (a prefix), one row with no valid slot
+        B, T, H, Hkv, D = WIDE_DECODE
+        lengths = torch.randint(1, 2 * T, (B,), generator=gen, device=dev)
+        valid = torch.arange(T, device=dev)[None] < lengths[:, None]
+        decode_case(B, T, H, Hkv, D, dt, dn, valid, True)
     # extra cases of the sweep file: non-causal flash, ring-buffer decode
     q = randn(torch, gen, (2, 128, 4, 64), torch.float32)
     k = randn(torch, gen, (2, 128, 2, 64), torch.float32)
@@ -195,18 +228,62 @@ def check_kernels(torch, dev):
     record("flash_attention", "non-causal B2 S128 H4 Hkv2 D64", "float32",
            fa.flash_attention(q, k, v, causal=False),
            fa.flash_attention_plain(q, k, v, causal=False), False)
-    q = randn(torch, gen, (2, 1, 4, 64), torch.float32)
-    kc = randn(torch, gen, (2, 512, 2, 64), torch.float32)
-    vc = randn(torch, gen, (2, 512, 2, 64), torch.float32)
-    valid = torch.rand((2, 512), generator=gen, device=dev) < 0.7
-    record("decode_attention", "ring-buffer B2 T512 H4 Hkv2 D64", "float32",
-           dec.decode_attention(q, kc, vc, valid),
-           dec.decode_attention_plain(q, kc, vc, valid), False)
+    for (B, T, H, Hkv, D) in ((2, 512, 4, 2, 64), WIDE_DECODE):
+        q = randn(torch, gen, (B, 1, H, D), torch.float32)
+        kc = randn(torch, gen, (B, T, Hkv, D), torch.float32)
+        vc = randn(torch, gen, (B, T, Hkv, D), torch.float32)
+        valid = torch.rand((B, T), generator=gen, device=dev) < 0.7
+        record("decode_attention", f"ring-buffer B{B} T{T} H{H} Hkv{Hkv} "
+               f"D{D}", "float32", dec.decode_attention(q, kc, vc, valid),
+               dec.decode_attention_plain(q, kc, vc, valid), False)
+    # the two scans, fp32 as their callers give them
+    for (b, s, h, p, g, n, chunk) in SWEEP_SSD + MAIN_SSD:
+        main = (b, s, h, p, g, n, chunk) in MAIN_SSD
+        args = ssd_inputs(torch, gen, b, s, h, p, g, n, mamba2_decay=main)
+        y, st = ssd.ssd_scan(*args, chunk=chunk)
+        y_r, st_r = ssd.ssd_scan_plain(*args)
+        case = f"b{b} s{s} h{h} p{p} g{g} n{n} c{chunk}"
+        record("ssd_scan", case + " y", "float32", y, y_r, main, "ssd")
+        record("ssd_scan", case + " state", "float32", st, st_r, main,
+               "ssd")
+    for (B, S, W) in SWEEP_RGLRU + MAIN_RGLRU:
+        args = rglru_inputs(torch, gen, B, S, W)
+        ys, hl = lru.rglru_scan(*args)
+        ys_r, hl_r = lru.rglru_scan_plain(*args)
+        main = (B, S, W) in MAIN_RGLRU
+        record("rglru_scan", f"B{B} S{S} W{W} ys", "float32", ys, ys_r,
+               main, "rglru")
+        record("rglru_scan", f"B{B} S{S} W{W} h_last", "float32", hl, hl_r,
+               main, "rglru")
     torch.cuda.synchronize()
     if failures:
         fail("kernels disagree with their plain versions: "
              + "; ".join(failures))
     return main_err
+
+
+def ssd_inputs(torch, gen, b, s, h, p, g, n, mamba2_decay=False):
+    """The distributions of tests/test_kernels.py::test_ssd_sweep; with
+    ``mamba2_decay`` the decay rates of mamba2-1.3b's init instead,
+    A = linspace(1, 16) over the heads."""
+    F = torch.nn.functional
+    x = randn(torch, gen, (b, s, h, p), torch.float32)
+    dt = F.softplus(randn(torch, gen, (b, s, h), torch.float32))
+    A = torch.exp(0.3 * randn(torch, gen, (h,), torch.float32))
+    if mamba2_decay:
+        A = torch.linspace(1.0, 16.0, h, device=gen.device)
+    B = 0.5 * randn(torch, gen, (b, s, g, n), torch.float32)
+    C = 0.5 * randn(torch, gen, (b, s, g, n), torch.float32)
+    return x, dt, A, B, C
+
+
+def rglru_inputs(torch, gen, B, S, W):
+    """The distributions of tests/test_kernels.py::test_rglru_sweep."""
+    F = torch.nn.functional
+    x = randn(torch, gen, (B, S, W), torch.float32)
+    log_a = -F.softplus(randn(torch, gen, (B, S, W), torch.float32))
+    h0 = randn(torch, gen, (B, W), torch.float32)
+    return x, log_a, h0
 
 
 def time_kernels(torch, dev, main_err):
@@ -215,7 +292,9 @@ def time_kernels(torch, dev, main_err):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as lru
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd
     gen = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
     rows = []
@@ -262,32 +341,79 @@ def time_kernels(torch, dev, main_err):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), "flash")))
-    # decode against the serve phase's cache shape, ragged validity
-    B, T, H, Hkv, Dh = MAIN_DECODE
-    q = randn(torch, gen, (B, 1, H, Dh), bf)
-    kc = randn(torch, gen, (B, T, Hkv, Dh), bf)
-    vc = randn(torch, gen, (B, T, Hkv, Dh), bf)
-    lengths = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
-    valid = torch.arange(T, device=dev)[None] < lengths[:, None]
-    n_valid = int(valid.sum())
-    nbytes = 2 * (2 * B * H * Dh) + B * T + 2 * n_valid * Hkv * Dh * 2
-    flops = 4.0 * n_valid * H * Dh
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    mask = valid[:, None, None, :]
+    def decode_timing(shape, max_len):
+        """The decode kernel against a cache of ragged validity: each row
+        holds 1..max_len tokens (past T: a ring that wrapped, all live)."""
+        B, T, H, Hkv, Dh = shape
+        q = randn(torch, gen, (B, 1, H, Dh), bf)
+        kc = randn(torch, gen, (B, T, Hkv, Dh), bf)
+        vc = randn(torch, gen, (B, T, Hkv, Dh), bf)
+        lengths = torch.randint(1, max_len + 1, (B,), generator=gen,
+                                device=dev)
+        valid = torch.arange(T, device=dev)[None] < lengths[:, None]
+        n_valid = int(valid.sum())
+        nbytes = 2 * (2 * B * H * Dh) + B * T + 2 * n_valid * Hkv * Dh * 2
+        b_ms, b_by = bound_ms(nbytes, 4.0 * n_valid * H * Dh, "bfloat16")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
+        mask = valid[:, None, None, :]
+        return dict(
+            shape=f"q ({B}, 1, {H}, {Dh}), cache ({B}, {T}, {Hkv}, {Dh}), "
+                  f"{n_valid} valid slots, bf16",
+            ms=device_ms(torch,
+                         lambda: dec.decode_attention(q, kc, vc, valid)),
+            plain_ms=device_ms(
+                torch, lambda: dec.decode_attention_plain(q, kc, vc, valid)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), "decode"))
+
+    # decode against the serve phase's cache shape (llama3-3b's); the
+    # same kernel at recurrentgemma-9b's shape is printed beside it
     rows.append(dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:57",
-        shape=f"q ({B}, 1, {H}, {Dh}), cache ({B}, {T}, {Hkv}, {Dh}), "
-              f"{n_valid} valid slots, bf16",
-        ms=device_ms(torch, lambda: dec.decode_attention(q, kc, vc, valid)),
-        plain_ms=device_ms(
-            torch, lambda: dec.decode_attention_plain(q, kc, vc, valid)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), "decode")))
-    for r in rows:
+        **decode_timing(MAIN_DECODE, MAIN_DECODE[1])))
+    wide = dict(name="decode_attention",
+                **decode_timing(WIDE_DECODE, 2 * WIDE_DECODE[1] - 1))
+    # SSD at mamba2-1.3b's largest prefill bucket (64 tokens, chunk 64):
+    # the bound counts the chunked form's products (C.B^T and att.x on
+    # the causal half, C.S and the state update) in fp32, no tensor core
+    b, s, h, p, g, n, c = MAIN_SSD[-1]
+    args = ssd_inputs(torch, gen, b, s, h, p, g, n, mamba2_decay=True)
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+                  + b * h * p * n)
+    tri = s // c * c * (c + 1) / 2
+    flops = 2.0 * b * h * (tri * (n + p) + 2 * s * p * n)
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    say("  library call for ssd_scan: none (no single PyTorch call "
+        "computes the chunked SSD scan)")
+    rows.append(dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd.py:66",
+        shape=f"x ({b}, {s}, {h}, {p}), B/C ({b}, {s}, {g}, {n}), "
+              f"chunk {c}, fp32",
+        ms=device_ms(torch, lambda: ssd.ssd_scan(*args, chunk=c)),
+        plain_ms=device_ms(torch, lambda: ssd.ssd_scan_plain(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    # RG-LRU at recurrentgemma-9b's largest prefill bucket: exp, the
+    # clip, sqrt and two products a step, each counted as one operation
+    B, S, W = MAIN_RGLRU[0]
+    args = rglru_inputs(torch, gen, B, S, W)
+    nbytes = 4 * (3 * B * S * W + 2 * B * W)
+    b_ms, b_by = bound_ms(nbytes, 8.0 * B * S * W, "float32")
+    say("  library call for rglru_scan: none (no single PyTorch call "
+        "computes a gated linear recurrence)")
+    rows.append(dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru.py:51",
+        shape=f"x, log_a ({B}, {S}, {W}), fp32",
+        ms=device_ms(torch, lambda: lru.rglru_scan(*args)),
+        plain_ms=device_ms(torch, lambda: lru.rglru_scan_plain(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    for r in rows + [wide]:
         r["max_abs_err"] = main_err[r["name"]]
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
@@ -301,17 +427,19 @@ def time_kernels(torch, dev, main_err):
 # phase 3: the full-width model
 # ---------------------------------------------------------------------------
 
-def check_model(torch, dev, cfg):
-    """Full-width model, random weights from a seeded generator.
+def check_model(torch, dev, cfg, fp32_units=None):
+    """Full-width model, random bf16 weights from a seeded generator.
 
-    fp32: the weights widened to fp32, through the kernels and through the
+    fp32: the model run in fp32 (each bf16 weight widened where it is
+    used, so no fp32 copy is held), through the kernels and through the
     plain versions, agree to FP32_REL_L2, and the prefill->decode contract
-    holds at the model tests' tolerances. bf16: a one-ulp rounding
-    difference anywhere grows through the random layers (on an H100 at
-    700 W the two bf16 paths of llama3-3b differ by about 1.4e-2 in
-    relative L2), so the kernels' bf16 logits are judged by their distance
-    from the fp32 logits, which may exceed the plain bf16 path's by
-    BF16_VS_PLAIN at most."""
+    holds at the model tests' tolerances; ``fp32_units`` cuts a hybrid's
+    depth for this check to that many units and its tail. bf16: a one-ulp rounding difference anywhere grows
+    through the random layers (on an H100 at 700 W the two bf16 paths of
+    llama3-3b differ by about 1.4e-2 in relative L2), so the kernels' bf16
+    logits are judged by their distance from the fp32 logits of the full
+    depth, which may exceed the plain bf16 path's by BF16_VS_PLAIN at
+    most."""
     import numpy as np
     from repro_torch.models import build_model
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -327,45 +455,50 @@ def check_model(torch, dev, cfg):
             f"({cfg.num_layers} layers, d_model {cfg.d_model}), init "
             f"{time.perf_counter() - t0:.1f} s")
         cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
-        ker32 = build_model(cfg32.replace(use_pallas=True))
-        params32 = _map(params, lambda t: t.float())
-        l32 = build_model(cfg32).forward(params32, toks)[0]
-        l32k = ker32.forward(params32, toks)[0]
+        cut32, params_cut = cfg32, params
+        if fp32_units:
+            cut32, params_cut = hybrid_prefix(cfg32, params, fp32_units)
+        ker32 = build_model(cut32.replace(use_pallas=True))
+        l32 = build_model(cut32).forward(params_cut, toks)[0]
+        l32k = ker32.forward(params_cut, toks)[0]
         e32 = rel_l2(torch, l32k, l32)
-        say(f"  fp32 logits {tuple(l32.shape)}: kernels vs plain rel-L2 "
-            f"{e32:.3e} (tol {FP32_REL_L2})")
-        pl, cache = ker32.prefill(params32, toks[:, :S - 1], max_len=128)
+        say(f"  fp32 logits {tuple(l32.shape)} at {cut32.num_layers} "
+            f"layers: kernels vs plain rel-L2 {e32:.3e} (tol {FP32_REL_L2})")
+        pl, cache = ker32.prefill(params_cut, toks[:, :S - 1], max_len=128)
         pos = torch.full((1,), S - 1, dtype=torch.long, device=dev)
-        dl, _ = ker32.decode_step(params32, toks[:, S - 1:], cache, pos)
+        dl, _ = ker32.decode_step(params_cut, toks[:, S - 1:], cache, pos)
         e_pf, ok_pf = close(torch, pl[:, 0], l32k[:, S - 2], "prefill")
         e_de, ok_de = close(torch, dl[:, 0], l32k[:, S - 1], "decode")
         say(f"  fp32 prefill->decode contract through the kernels: prefill "
             f"max abs {e_pf:.3e} (tol {TOL['prefill'][1]}), decode "
             f"{e_de:.3e} (tol {TOL['decode'][1]})")
-        del params32, cache, ker32
+        del cache, ker32, l32, l32k, params_cut
         torch.cuda.empty_cache()
         if e32 > FP32_REL_L2 or not (ok_pf and ok_de):
-            fail("fp32 model through the kernels disagrees with the plain "
-                 "versions or breaks the prefill->decode contract")
+            fail(f"{cfg.name}: fp32 model through the kernels disagrees "
+                 "with the plain versions or breaks the prefill->decode "
+                 "contract")
+        l32 = build_model(cfg32).forward(params, toks)[0]
         lk = build_model(cfg.replace(use_pallas=True)).forward(params,
                                                                toks)[0]
         lp = build_model(cfg).forward(params, toks)[0]
         e_k, e_p = rel_l2(torch, lk, l32), rel_l2(torch, lp, l32)
-        say(f"  bf16 logits vs fp32: kernels rel-L2 {e_k:.3e}, plain "
-            f"{e_p:.3e} (kernels <= {BF16_VS_PLAIN} x plain); kernels vs "
-            f"plain {rel_l2(torch, lk, lp):.3e}")
+        say(f"  bf16 logits vs fp32 at {cfg.num_layers} layers: kernels "
+            f"rel-L2 {e_k:.3e}, plain {e_p:.3e} (kernels <= "
+            f"{BF16_VS_PLAIN} x plain); kernels vs plain "
+            f"{rel_l2(torch, lk, lp):.3e}")
         if not bool(torch.isfinite(lk).all()) or e_k > BF16_VS_PLAIN * e_p:
-            fail("bf16 model logits through the kernels are further from "
-                 "fp32 than the plain versions'")
+            fail(f"{cfg.name}: bf16 model logits through the kernels are "
+                 "further from fp32 than the plain versions'")
     del params
+    torch.cuda.empty_cache()
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
+def hybrid_prefix(cfg, params, units):
+    """A hybrid cut to its first ``units`` units and its tail."""
+    layers = units * len(cfg.block_pattern) + len(params["tail"])
+    return (cfg.replace(num_layers=layers),
+            dict(params, units=params["units"][:units]))
 
 
 def _leaves(tree):
@@ -419,27 +552,51 @@ def serve(torch, dev, cfg):
     say(f"  frequency history (MHz): "
         f"{[h['freq'] for h in tuner.history]}")
     say(f"  kernel launches on the serve path: {counts}")
-    L = cfg.num_layers
+    say(f"  prefill lengths: {backend.prefill_lengths}")
     checks = {
         "all 8 requests finished": len(eng.finished) == 8,
         "generated == output_len": all(r.generated == r.output_len
                                        for r in eng.finished),
         "energy > 0": c.energy_joules_total > 0,
         "tuner.round >= 1": tuner.round >= 1,
-        "every kernel launched": all(n > 0 for n in counts.values()),
-        "decode launches == L x decode steps":
-            counts["decode_attention"] == L * backend.decode_steps,
-        "flash launches == L x prefill forwards":
-            counts["flash_attention"] == L * backend.prefill_steps,
-        "rmsnorm launches == (2L+1) x (forwards + decode steps)":
-            counts["rmsnorm"] == (2 * L + 1) * (backend.prefill_steps
-                                                + backend.decode_steps),
     }
+    want = path_launches(cfg, backend)
+    for name, n in counts.items():
+        checks[f"{name} launches == {want.get(name, 0)}"] = \
+            n == want.get(name, 0)
+    checks["every kernel of the path launched"] = all(
+        counts[name] > 0 for name in want)
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        fail("serve phase: " + "; ".join(bad))
+        fail(f"{cfg.name} serve phase: " + "; ".join(bad))
     trace_decode(torch, dev, backend)
     return counts
+
+
+def path_launches(cfg, backend):
+    """The launches each kernel of the model's path makes over the serve
+    phase, from the forwards and decode steps it ran: per forward and per
+    decode step, RMSNorm 2L+1 (dense, hybrid) or L+1 (Mamba-2: its gated
+    norm stays plain, as in the JAX package); per forward, flash attention
+    L (dense), the SSD scan L (Mamba-2, at every length) and the RG-LRU
+    scan once per rec layer (hybrid, at lengths of 2 and more: a one-token
+    forward takes the inline step); per decode step, decode attention L
+    (dense) or once per attention layer (hybrid). Kernels absent here must
+    not launch."""
+    L = cfg.num_layers
+    fwd, dec = backend.prefill_steps, backend.decode_steps
+    if cfg.arch_type == "ssm":
+        return {"rmsnorm": (L + 1) * (fwd + dec), "ssd_scan": L * fwd}
+    if cfg.arch_type == "hybrid":
+        pat = cfg.block_pattern
+        units, tail = L // len(pat), L % len(pat)
+        rec = units * pat.count("rec") + tail
+        multi = sum(n >= 2 for n in backend.prefill_lengths)
+        return {"rmsnorm": (2 * L + 1) * (fwd + dec),
+                "rglru_scan": rec * multi,
+                "decode_attention": units * pat.count("attn") * dec}
+    return {"rmsnorm": (2 * L + 1) * (fwd + dec),
+            "flash_attention": L * fwd, "decode_attention": L * dec}
 
 
 def trace_decode(torch, dev, backend, steps: int = 4):
@@ -517,25 +674,31 @@ def main() -> None:
     x = torch.ones((1, 3072), dtype=torch.bfloat16, device=dev)
     rms.rmsnorm(x, x[0])
     torch.cuda.synchronize()
-    say(f"  build: nvcc {t_nvcc:.1f} s (both CUDA sources at once), "
+    say(f"  build: nvcc {t_nvcc:.1f} s (every CUDA source at once), "
         f"Triton rmsnorm compile {time.perf_counter() - t0 - t_nvcc:.1f} s")
 
     say("== phase 2: kernels vs plain versions")
     main_err = check_kernels(torch, dev)
     rows = time_kernels(torch, dev, main_err)
 
-    cfg = get_config("llama3-3b")
-    say("== phase 3: full-width model")
-    check_model(torch, dev, cfg)
-    torch.cuda.empty_cache()
+    say("== phase 3: full-width models")
+    for name in MODELS:
+        cfg = get_config(name)
+        check_model(torch, dev, cfg, fp32_units=(
+            HYBRID_FP32_UNITS if cfg.arch_type == "hybrid" else None))
 
     say("== phase 4: serve under AGFT")
-    counts = serve(torch, dev, cfg)
+    launches = {}
+    for name in MODELS:
+        counts = serve(torch, dev, get_config(name))
+        torch.cuda.empty_cache()
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = launches[r["name"]]
     say(f"card: {card}")
     say(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     say(json.dumps({"ok": True, "device": {

@@ -11,8 +11,13 @@
 // B = 8, T = 2048, Hkv = 8, D = 128 in bf16 the whole of K and V is 67 MB,
 // about 20 us at 3.35 TB/s, against about 0.1 GFLOP. The design is
 // flash-decoding in two passes. Pass 1 has one block per (b, kv head,
-// chunk of slots), so the cache is read once for all G heads and enough
-// blocks are in flight to fill the 132 SMs even at small B * Hkv; its four
+// chunk of slots, group of up to GMAX = 8 query heads), so for G <= 8 the
+// cache is read once for all G heads and enough blocks are in flight to
+// fill the 132 SMs even at small B * Hkv. A wider group (RecurrentGemma's
+// 16 query heads over one kv head, at D = 256) is split into head groups
+// of at most 8 along the grid's third axis: each lane then still holds the
+// (m, l, acc) of at most 8 heads in registers, and the blocks of one chunk
+// read the same K/V rows, which the second of them finds in L2. Its four
 // warps take tiles of 32 slots (one slot per lane), keep their own
 // (m, l, acc), and merge them through shared memory into the block's
 // partial. Pass 2 merges the chunks' partials and normalises. A lane reads
@@ -24,9 +29,9 @@
 namespace {
 
 constexpr int NW = 4;       // warps per block
-constexpr int GMAX = 8;     // most query heads per kv head
+constexpr int GMAX = 8;     // most query heads per block
+constexpr int GTOT = 16;    // most query heads per kv head
 constexpr int TK = 32;      // slots per warp tile: one per lane
-constexpr int VJ = 8;       // V rows loaded together in P.V
 
 struct Args {
   long long sqb, sqh;         // q (B,1,H,D)
@@ -55,8 +60,9 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
-// Pass 1: block (b*Hkv + hk, split) streams its chunk of slots and writes
-// the unnormalised (m, l, acc) of each of the G heads to the partials.
+// Pass 1: block (b*Hkv + hk, split, head group) streams its chunk of slots
+// and writes the unnormalised (m, l, acc) of each of its heads to the
+// partials.
 template <typename T, int D>
 __global__ void __launch_bounds__(NW * 32)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -66,6 +72,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       float* __restrict__ part_acc, Args a) {
   constexpr int DPL = D / 32;              // output dims per lane
   constexpr int VL = 16 / sizeof(T);       // elements per 16-byte load
+  constexpr int VJ = D >= 256 ? 4 : 8;     // V rows loaded together in P.V
   __shared__ float qs[GMAX][D];
   __shared__ float wm[NW][GMAX];
   __shared__ float wl[NW][GMAX];
@@ -74,14 +81,16 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x;
   const int b = bh / a.Hkv;
   const int hk = bh % a.Hkv;
-  const int G = a.G;
+  const int g0 = blockIdx.z * GMAX;        // first head of this block
+  const int G = min(GMAX, a.G - g0);       // heads of this block
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
   for (int i = tid; i < G * D; i += NW * 32) {
     const int g = i / D, d = i % D;
-    qs[g][d] = repro_to_float(q[b * a.sqb + (hk * G + g) * a.sqh + d]) *
+    qs[g][d] = repro_to_float(
+                   q[b * a.sqb + (hk * a.G + g0 + g) * a.sqh + d]) *
                a.scale;
   }
   __syncthreads();
@@ -176,7 +185,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // merge the warps; the block's partial keeps its own running max
   const long long base = (static_cast<long long>(bh) * a.nsplit +
-                          blockIdx.y) * G;
+                          blockIdx.y) * a.G + g0;
   for (int i = tid; i < G * D; i += NW * 32) {
     const int g = i / D, d = i % D;
     float mx = REPRO_NEG_INF;
@@ -197,8 +206,10 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Pass 2: merge the splits of each (b, hk) and normalise; a row with no
-// valid slot has l == 0 and gives 0.
+// Pass 2: block (b*Hkv + hk, g) merges the splits of query head g and
+// normalises; a row with no valid slot has l == 0 and gives 0. One block
+// per head, not per (b, hk): at RecurrentGemma's B * Hkv = 8 the merge of
+// 16 heads of 256 would otherwise run on 8 blocks.
 template <typename T, int D>
 __global__ void __launch_bounds__(NW * 32)
 decode_combine_kernel(const float* __restrict__ part_m,
@@ -209,9 +220,9 @@ decode_combine_kernel(const float* __restrict__ part_m,
   const int b = bh / a.Hkv;
   const int hk = bh % a.Hkv;
   const int G = a.G;
+  const int g = blockIdx.y;
   const long long base = static_cast<long long>(bh) * a.nsplit * G;
-  for (int i = threadIdx.x; i < G * D; i += NW * 32) {
-    const int g = i / D, d = i % D;
+  for (int d = threadIdx.x; d < D; d += NW * 32) {
     float mx = REPRO_NEG_INF;
     for (int sp = 0; sp < a.nsplit; ++sp)
       mx = fmaxf(mx, part_m[base + sp * G + g]);
@@ -235,14 +246,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   float* part_m = part;
   float* part_l = part + rows;
   float* part_acc = part + 2 * rows;
-  dim3 grid(B * a.Hkv, a.nsplit);
+  dim3 grid(B * a.Hkv, a.nsplit, (a.G + GMAX - 1) / GMAX);
   decode_partial_kernel<T, D><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(valid), part_m,
       part_l, part_acc, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T, D><<<B * a.Hkv, NW * 32, 0, stream>>>(
+  decode_combine_kernel<T, D><<<dim3(B * a.Hkv, a.G), NW * 32, 0, stream>>>(
       part_m, part_l, part_acc, static_cast<T*>(o), a);
   return cudaGetLastError();
 }
@@ -253,8 +264,9 @@ REPRO_EXPORT_ERROR_STRING
 
 // q (B,1,H,D); k/v (B,T,Hkv,D) caches; valid (B,T) bytes (torch.bool);
 // o (B,1,H,D); part: fp32 scratch of B*Hkv*nsplit*G*(D+2) floats. D stride
-// 1 everywhere, K/V rows 16-byte aligned; strides in elements. D is 64 or
-// 128, H / Hkv at most 8; chunk a multiple of 128 with nsplit * chunk >= T;
+// 1 everywhere, K/V rows 16-byte aligned; strides in elements. D is 64,
+// 128 or 256, H / Hkv at most 16; chunk a multiple of 128 with
+// nsplit * chunk >= T;
 // dtype REPRO_F32/REPRO_BF16.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* valid, void* o,
@@ -262,7 +274,7 @@ extern "C" int decode_attention_fwd(
     int nsplit, long long sqb, long long sqh, long long skb, long long skt,
     long long skh, long long svb, long long svt, long long svh,
     long long smb, long long sob, long long soh, float scale, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > GMAX || T <= 0 || B <= 0 ||
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > GTOT || T <= 0 || B <= 0 ||
       chunk <= 0 || chunk % (NW * TK) != 0 ||
       static_cast<long long>(chunk) * nsplit < T)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -279,5 +291,9 @@ extern "C" int decode_attention_fwd(
     err = launch<__nv_bfloat16, 64>(q, k, v, valid, o, pf, B, a, st);
   else if (dtype == REPRO_BF16 && D == 128)
     err = launch<__nv_bfloat16, 128>(q, k, v, valid, o, pf, B, a, st);
+  else if (dtype == REPRO_F32 && D == 256)
+    err = launch<float, 256>(q, k, v, valid, o, pf, B, a, st);
+  else if (dtype == REPRO_BF16 && D == 256)
+    err = launch<__nv_bfloat16, 256>(q, k, v, valid, o, pf, B, a, st);
   return static_cast<int>(err);
 }

@@ -9,7 +9,9 @@ wrapper's transposed copy (``repro/kernels/ops.py``) would move
 2 x 33.5 MB per layer per step at B = 8, T = 2048 in bf16. The first
 pass splits T into chunks so that about four blocks run on each SM
 (``split_plan``); the second merges them. A row with no valid slot gives
-0, as the TPU kernel does.
+0, as the TPU kernel does. Groups of more than 8 query heads per kv head
+(RecurrentGemma's 16 at head_dim 256) are split into head groups of at
+most 8 along the grid.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ __all__ = ["decode_attention", "decode_attention_plain"]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-GMAX = 8        # most query heads per kv head the kernel takes
+GMAX = 16       # most query heads per kv head the kernel takes
+HEAD_DIMS = (64, 128, 256)
 SPLIT = 128     # slots per block of the first pass are a multiple of this
 
 
@@ -50,8 +53,9 @@ def _check(q, k_cache, v_cache, valid):
     if H % Hkv or H // Hkv > GMAX:
         raise ValueError(f"decode_attention: H/Hkv must be an integer "
                          f"<= {GMAX}")
-    if D not in (64, 128):
-        raise ValueError(f"decode_attention: head_dim {D} not in (64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head_dim {D} not in "
+                         f"{HEAD_DIMS}")
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or \
             v_cache.dtype != q.dtype:
         raise TypeError(f"decode_attention: unsupported dtype {q.dtype}")

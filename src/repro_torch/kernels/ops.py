@@ -2,14 +2,17 @@
 ``repro.kernels.ops``. Dispatch is by tensor device: a CUDA tensor launches
 the hand-written Hopper kernel, a CPU tensor runs its plain version, any
 other device raises. There is no fallback from a kernel to its plain
-version. The Hopper kernels pick their own tiles, so the ``block_q`` and
-``block_k`` arguments of the reference signatures are not taken.
+version. The Hopper kernels pick their own tiles, so the ``block_q``,
+``block_k``, ``block_w`` and ``block_s`` arguments of the reference
+signatures are not taken.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention as _dec
 from repro_torch.kernels.flash_attention import flash_attention as _fa
+from repro_torch.kernels.rglru import rglru_scan as _rglru
 from repro_torch.kernels.rmsnorm import rmsnorm as _rms
+from repro_torch.kernels.ssd import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -24,3 +27,19 @@ def decode_attention(q, k_cache, v_cache, valid):
 
 def rmsnorm(x, weight, *, eps: float = 1e-6):
     return _rms(x, weight, eps=eps)
+
+
+def rglru_scan(x, log_a, h0):
+    """x, log_a (B,S,W); h0 (B,W) -> (ys, h_last), all fp32."""
+    return _rglru(x.float(), log_a.float(), h0.float())
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
+    """Chunked SSD, shapes as ``repro_torch.kernels.ref.ssd_scan``, all
+    fp32. The chunk is halved until it divides S (chunk 1 at S = 1)."""
+    s = x.shape[1]
+    ck = chunk
+    while s % ck:
+        ck //= 2
+    return _ssd(x.float(), dt.float(), A.float(), B.float(), C.float(),
+                chunk=max(ck, 1))

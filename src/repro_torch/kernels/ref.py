@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels, the counterparts of the
 jnp oracles in ``repro.kernels.ref``. They run wherever PyTorch runs: the
 wrappers call them for a CPU tensor, and the tests and ``chip_smoke.py``
-hold each kernel against them.
+hold each kernel against them. The two scans walk time token by token, as
+the oracles do.
 
 One case differs from ``repro.kernels.ref`` on purpose: a decode row with
 no valid slot. The Pallas decode kernel zeroes ``p`` where a slot is
@@ -61,3 +62,42 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def rglru_scan(x: torch.Tensor, log_a: torch.Tensor,
+               h0: torch.Tensor):
+    """h_t = a_t h_{t-1} + sqrt(1-a_t^2) x_t with a = exp(log_a), walked
+    token by token. x, log_a (B,S,W); h0 (B,W) -> (ys (B,S,W), h_last
+    (B,W)), fp32."""
+    a = torch.exp(log_a.float())
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, 1e-9, 1.0)) * x.float()
+    h = h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + gated[:, t]
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 0):
+    """Sequential state-space oracle of the SSD kernel, token by token
+    (``chunk`` is taken for the kernel's signature and not used).
+
+    x (b,s,h,p); dt (b,s,h); A (h,); B,C (b,s,g,n).
+    Returns (y (b,s,h,p), final_state (b,h,p,n)), fp32."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    Br = torch.repeat_interleave(B.float(), rep, dim=2)
+    Cr = torch.repeat_interleave(C.float(), rep, dim=2)
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(-dtf[:, t] * Af[None])[..., None, None]
+        upd = dtf[:, t, :, None, None] * torch.einsum(
+            "bhn,bhp->bhpn", Br[:, t], xf[:, t])
+        state = decay * state + upd
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cr[:, t], state))
+    return torch.stack(ys, dim=1), state

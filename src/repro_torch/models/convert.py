@@ -1,10 +1,14 @@
 """Turn a JAX-package param tree, given as numpy arrays, into the port's
 params, so parity tests run both frameworks on the same weights.
 
-The JAX tree (``repro.models.transformer.DecoderOnlyLM.init``) stacks the
-homogeneous layers on a leading axis (``params["layers"][name]`` has shape
-(L, ...)) and keeps ``params["prefix"]`` as a list of unstacked layers. The
-port keeps a list of per-layer dicts. Matrices stay (in, out) in both.
+The JAX trees stack homogeneous layers on a leading axis: ``layers`` of
+``DecoderOnlyLM`` and ``MambaLM`` (each leaf (L, ...), nested dicts such
+as Mamba's ``mixer`` included) and ``units`` of ``HybridLM`` (a dict of
+``l0``/``l1``/``l2`` layer dicts, each leaf (n_units, ...)). ``prefix``
+(dense) and ``tail`` (hybrid) are lists of unstacked layers. The port keeps
+a list of per-layer (or per-unit) dicts for a stacked key, and the lists as
+they are. Matrices stay (in, out) in both, and every leaf keeps its dtype
+(Mamba's ``A_log``, ``D`` and ``dt_bias`` are fp32 in any config).
 """
 from __future__ import annotations
 
@@ -46,17 +50,23 @@ def _num_layers(tree) -> int:
     return int(np.shape(tree)[0])
 
 
+_STACKED = ("layers", "units")     # stacked on a leading axis
+
+
 def from_jax_params(tree: Any, device="cuda") -> Any:
     """The JAX param tree (leaves as numpy arrays) -> the port's params on
     ``device``. The default is the card, and asking for it without one
     raises; pass ``device="cpu"`` for the plain PyTorch path."""
     device = resolve_device(device)
-    out = {k: to_tensor(v, device) for k, v in tree.items()
-           if k not in ("layers", "prefix")}
-    out["prefix"] = [_map(lp, lambda a: to_tensor(a, device))
-                     for lp in tree.get("prefix", [])]
-    layers = tree["layers"]
-    out["layers"] = [_map(_unstack(layers, i),
-                          lambda a: to_tensor(a, device))
-                     for i in range(_num_layers(layers))]
+
+    def conv(a):
+        return to_tensor(a, device)
+
+    out = {}
+    for k, v in tree.items():
+        if k in _STACKED:
+            out[k] = [_map(_unstack(v, i), conv)
+                      for i in range(_num_layers(v))]
+        else:
+            out[k] = _map(v, conv)
     return out

@@ -183,19 +183,24 @@ class TorchBackend:
     - prefill runs ``forward`` on zero tokens, padded to a power of two of
       at most 64, and does not fill the decode cache;
     - decode runs ``decode_step`` at a fixed ``max_batch`` against a cache
-      of ``cache_len`` slots, with ``pos`` clamped to ``cache_len - 1``;
+      of ``cache_len`` slots, with ``pos`` clamped to ``cache_len - 1``,
+      and keeps the cache it returns (the dense model's is the same one,
+      written in place; the SSM and hybrid states come back as new
+      tensors);
     - energy uses ``JaxBackend``'s DVFS formula on the wall time taken
       after ``torch.cuda.synchronize()``; clock control and power stay
       simulated.
 
     The model is built with ``cfg.replace(use_pallas=True)``, so on the card
-    every RMSNorm, prefill attention and decode attention goes through the
-    hand-written Hopper kernels (on the CPU, their plain versions).
+    every kernel of the model's path (RMSNorm, prefill and decode
+    attention, the SSD and RG-LRU scans) goes through the hand-written
+    Hopper kernels (on the CPU, their plain versions).
     Weights are random, drawn from ``seed``. There is no
     ``execute_phased``: the engine runs a phased iteration at the dominant
     phase's clock. ``prefill_steps`` and ``decode_steps`` count the
-    forwards and decode steps run; ``decode_wall_s`` keeps the wall time of
-    each decode-only iteration.
+    forwards and decode steps run; ``prefill_lengths`` keeps each forward's
+    padded length, and ``decode_wall_s`` the wall time of each decode-only
+    iteration.
     """
 
     def __init__(self, cfg: ModelConfig, hardware: HardwareSpec = H100,
@@ -212,9 +217,13 @@ class TorchBackend:
         self.cache_len = cache_len
         self.cache = self.model.init_cache(max_batch, cache_len,
                                            device=self.device)
-        self.prefill_steps = 0
+        self.prefill_lengths: List[int] = []
         self.decode_steps = 0
         self.decode_wall_s: List[float] = []
+
+    @property
+    def prefill_steps(self) -> int:
+        return len(self.prefill_lengths)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -233,7 +242,7 @@ class TorchBackend:
                 toks = torch.zeros((1, n), dtype=torch.long,
                                    device=self.device)
                 self.model.forward(self.params, toks)
-                self.prefill_steps += 1
+                self.prefill_lengths.append(n)
             if plan.decode:
                 b = self.max_batch
                 tok = torch.zeros((b, 1), dtype=torch.long,
@@ -242,8 +251,8 @@ class TorchBackend:
                     [r.context_len for r in plan.decode[:b]]
                     + [1] * max(0, b - len(plan.decode)),
                     dtype=torch.long).clamp_(max=self.cache_len - 1)
-                self.model.decode_step(self.params, tok, self.cache,
-                                       pos.to(self.device))
+                _, self.cache = self.model.decode_step(
+                    self.params, tok, self.cache, pos.to(self.device))
                 self.decode_steps += 1
         self._sync()
         wall = time.perf_counter() - t0

@@ -42,7 +42,8 @@ def test_engine_with_real_torch_execution():
     assert backend.cfg.use_pallas
     assert backend.prefill_steps > 0 and backend.decode_steps > 0
     assert launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
-                               "decode_attention": 0}
+                               "decode_attention": 0, "ssd_scan": 0,
+                               "rglru_scan": 0}
 
 
 def test_backend_defaults_to_h100_and_the_registered_agft():

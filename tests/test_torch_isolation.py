@@ -35,8 +35,12 @@ for n in names:
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 '''
+
+# the modules of the SSM and hybrid path, which the walk must reach
+PATH_MODULES = {"repro_torch.kernels.ssd", "repro_torch.kernels.rglru",
+                "repro_torch.models.ssm", "repro_torch.models.hybrid"}
 
 
 def _sources():
@@ -54,7 +58,27 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, env=env,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 40
+    names = set(out.stdout.split())
+    assert len(names) >= 44 and PATH_MODULES <= names
+
+
+def test_cuda_sources_include_only_cuda_headers():
+    """Each ``csrc`` source behind a kernel wrapper includes the CUDA
+    toolkit's headers and the port's own ``common.cuh``, nothing else."""
+    csrc = os.path.join(PKG, "csrc")
+    allowed = re.compile(r'#include\s+(<cuda[\w_]*\.h>|<stdint\.h>'
+                         r'|"common\.cuh")')
+    names = sorted(f for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
+    assert {"ssd_scan.cu", "rglru_scan.cu", "decode_attention.cu",
+            "flash_attention.cu"} <= set(names)
+    bad = []
+    for f in names:
+        with open(os.path.join(csrc, f)) as fh:
+            for line in fh:
+                if line.lstrip().startswith("#include") and \
+                        not allowed.match(line.strip()):
+                    bad.append(f"{f}: {line.strip()}")
+    assert not bad, bad
 
 
 def test_no_jax_or_repro_import_in_sources():

@@ -151,8 +151,13 @@ def test_cpu_tensors_run_the_plain_versions_uncounted():
     q = torch.randn(1, 8, 2, 64)
     ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
     ops.decode_attention(q[:, :1], q, q, torch.ones(1, 8, dtype=torch.bool))
+    ops.ssd_scan(q, q[..., 0], torch.ones(2), q[:, :, :1], q[:, :, :1],
+                 chunk=8)
+    x = torch.randn(2, 8, 64)
+    ops.rglru_scan(x, -torch.rand(2, 8, 64), x[:, 0])
     assert launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
-                               "decode_attention": 0}
+                               "decode_attention": 0, "ssd_scan": 0,
+                               "rglru_scan": 0}
 
 
 def test_other_devices_raise():
@@ -166,6 +171,11 @@ def test_other_devices_raise():
         ops.decode_attention(q[:, :1], q, q,
                              torch.empty(1, 4, dtype=torch.bool,
                                          device="meta"))
+    with pytest.raises(ValueError):
+        ops.ssd_scan(q, q[..., 0], torch.empty(2, device="meta"),
+                     q[:, :, :1], q[:, :, :1], chunk=4)
+    with pytest.raises(ValueError):
+        ops.rglru_scan(q[0], q[0], q[0, 0])
 
 
 def test_kernel_builds_go_into_the_checkout(monkeypatch, tmp_path):
