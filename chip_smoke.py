@@ -18,14 +18,17 @@ failure, or when there is no card or no checkout beside it. Phases:
 3. Models: full-width llama3-3b, mamba2-1.3b and recurrentgemma-9b from a
    seeded generator, one at a time; fp32 logits through the kernels
    against the plain versions (recurrentgemma-9b cut to 5 layers: a unit
-   and the tail), the prefill->decode contract, and bf16 at full depth
-   judged against fp32.
+   and the tail), the prefill->decode contract, and bf16 judged against
+   fp32, at 2 layers (a hybrid: 5) and at full depth.
 4. Serve: ``InferenceEngine`` + ``TorchBackend`` + the AGFT tuner over 8
-   ``normal`` requests for each of the three models; each kernel of a
-   model's path must have run there, as many times as the path says.
+   ``normal`` requests for each of the three models, the launch counts set
+   to 0 before each and read after it; each kernel of a model's path must
+   have run there, as many times as the path says.
 
-The last lines are a JSON object with each kernel's numbers and the
-result line ``{"ok": true, "device": {...}}``.
+The last lines are a JSON object with each kernel's numbers (a row per
+kernel and timed shape; its launches are those of the serve runs whose
+path runs that shape, also given per model) and the result line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -76,7 +79,19 @@ MAIN_RGLRU = [(1, 64, 4096), (1, 256, 4096)]
 MODELS = ("llama3-3b", "mamba2-1.3b", "recurrentgemma-9b")
 # recurrentgemma-9b's fp32 kernels-vs-plain check covers one (rec, rec,
 # attn) unit and the two-layer tail, 5 layers; its bf16 check runs all 38
-HYBRID_FP32_UNITS = 1
+HYBRID_FP32_LAYERS = 5
+# the shallow bf16 check: 2 layers (a hybrid: a unit and its tail), where
+# a rounding flip has not yet grown through the depth
+BF16_CUT_LAYERS = 2
+# each timed row of the kernels line: its kernel, and the serve runs whose
+# path launches that kernel at the row's shape (the row counts theirs)
+ROWS = {"rmsnorm": ("rmsnorm", MODELS),
+        "flash_attention": ("flash_attention", ("llama3-3b",)),
+        "decode_attention": ("decode_attention", ("llama3-3b",)),
+        "decode_attention_d256_g16": ("decode_attention",
+                                      ("recurrentgemma-9b",)),
+        "ssd_scan": ("ssd_scan", ("mamba2-1.3b",)),
+        "rglru_scan": ("rglru_scan", ("recurrentgemma-9b",))}
 
 
 def fail(msg: str) -> None:
@@ -163,9 +178,7 @@ def check_kernels(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     failures = []
-    main_err = {"rmsnorm": 0.0, "flash_attention": 0.0,
-                "decode_attention": 0.0, "ssd_scan": 0.0,
-                "rglru_scan": 0.0}
+    main_err = dict.fromkeys(ROWS, 0.0)
 
     def record(name, case, dn, got, want, main, tol=None):
         err, ok = close(torch, got, want, tol or dn)
@@ -182,14 +195,15 @@ def check_kernels(torch, dev):
         if main and (dn == "bfloat16" or tol):
             main_err[name] = max(main_err[name], err)
 
-    def decode_case(B, T, H, Hkv, D, dt, dn, valid, main):
+    def decode_case(B, T, H, Hkv, D, dt, dn, valid, main,
+                    row="decode_attention"):
         q = randn(torch, gen, (B, 1, H, D), dt)
         kc = randn(torch, gen, (B, T, Hkv, D), dt)
         vc = randn(torch, gen, (B, T, Hkv, D), dt)
         if main:
             valid[-1] = False                     # the all-invalid row
         got = dec.decode_attention(q, kc, vc, valid)
-        record("decode_attention", f"B{B} T{T} H{H} Hkv{Hkv} D{D}", dn,
+        record(row, f"B{B} T{T} H{H} Hkv{Hkv} D{D}", dn,
                got, dec.decode_attention_plain(q, kc, vc, valid), main)
         if main and bool(got[-1].float().abs().max() != 0):
             failures.append(f"decode all-invalid row not 0 (D{D} {dn})")
@@ -220,7 +234,8 @@ def check_kernels(torch, dev):
         B, T, H, Hkv, D = WIDE_DECODE
         lengths = torch.randint(1, 2 * T, (B,), generator=gen, device=dev)
         valid = torch.arange(T, device=dev)[None] < lengths[:, None]
-        decode_case(B, T, H, Hkv, D, dt, dn, valid, True)
+        decode_case(B, T, H, Hkv, D, dt, dn, valid, True,
+                    "decode_attention_d256_g16")
     # extra cases of the sweep file: non-causal flash, ring-buffer decode
     q = randn(torch, gen, (2, 128, 4, 64), torch.float32)
     k = randn(torch, gen, (2, 128, 2, 64), torch.float32)
@@ -228,12 +243,14 @@ def check_kernels(torch, dev):
     record("flash_attention", "non-causal B2 S128 H4 Hkv2 D64", "float32",
            fa.flash_attention(q, k, v, causal=False),
            fa.flash_attention_plain(q, k, v, causal=False), False)
-    for (B, T, H, Hkv, D) in ((2, 512, 4, 2, 64), WIDE_DECODE):
+    for (B, T, H, Hkv, D), row in (
+            ((2, 512, 4, 2, 64), "decode_attention"),
+            (WIDE_DECODE, "decode_attention_d256_g16")):
         q = randn(torch, gen, (B, 1, H, D), torch.float32)
         kc = randn(torch, gen, (B, T, Hkv, D), torch.float32)
         vc = randn(torch, gen, (B, T, Hkv, D), torch.float32)
         valid = torch.rand((B, T), generator=gen, device=dev) < 0.7
-        record("decode_attention", f"ring-buffer B{B} T{T} H{H} Hkv{Hkv} "
+        record(row, f"ring-buffer B{B} T{T} H{H} Hkv{Hkv} "
                f"D{D}", "float32", dec.decode_attention(q, kc, vc, valid),
                dec.decode_attention_plain(q, kc, vc, valid), False)
     # the two scans, fp32 as their callers give them
@@ -367,24 +384,30 @@ def time_kernels(torch, dev, main_err):
             library_ms=lib_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), "decode"))
 
-    # decode against the serve phase's cache shape (llama3-3b's); the
-    # same kernel at recurrentgemma-9b's shape is printed beside it
-    rows.append(dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:57",
-        **decode_timing(MAIN_DECODE, MAIN_DECODE[1])))
-    wide = dict(name="decode_attention",
-                **decode_timing(WIDE_DECODE, 2 * WIDE_DECODE[1] - 1))
-    # SSD at mamba2-1.3b's largest prefill bucket (64 tokens, chunk 64):
-    # the bound counts the chunked form's products (C.B^T and att.x on
-    # the causal half, C.S and the state update) in fp32, no tensor core
+    # decode at llama3-3b's cache shape, and at recurrentgemma-9b's
+    # (16 query heads over 1 kv head at head_dim 256, a 2048-slot ring)
+    for row, shape, max_len in (
+            ("decode_attention", MAIN_DECODE, MAIN_DECODE[1]),
+            ("decode_attention_d256_g16", WIDE_DECODE,
+             2 * WIDE_DECODE[1] - 1)):
+        rows.append(dict(
+            name=row, route="cuda",
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:57",
+            **decode_timing(shape, max_len)))
+    # SSD at mamba2-1.3b's largest prefill bucket (64 tokens, chunk 64).
+    # The bound counts the products the function needs, in fp32 (no tensor
+    # core): C.B^T on the causal half once per (batch, group, chunk), as
+    # the heads of a group share it; per head att.x on the causal half,
+    # the state update, and C.S_prev for every chunk but the first, whose
+    # incoming state is 0
     b, s, h, p, g, n, c = MAIN_SSD[-1]
     args = ssd_inputs(torch, gen, b, s, h, p, g, n, mamba2_decay=True)
     nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
                   + b * h * p * n)
     tri = s // c * c * (c + 1) / 2
-    flops = 2.0 * b * h * (tri * (n + p) + 2 * s * p * n)
+    flops = 2.0 * b * (g * tri * n
+                       + h * (tri * p + s * p * n + (s - c) * p * n))
     b_ms, b_by = bound_ms(nbytes, flops, "float32")
     say("  library call for ssd_scan: none (no single PyTorch call "
         "computes the chunked SSD scan)")
@@ -413,7 +436,7 @@ def time_kernels(torch, dev, main_err):
         ms=device_ms(torch, lambda: lru.rglru_scan(*args)),
         plain_ms=device_ms(torch, lambda: lru.rglru_scan_plain(*args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    for r in rows + [wide]:
+    for r in rows:
         r["max_abs_err"] = main_err[r["name"]]
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
@@ -427,19 +450,20 @@ def time_kernels(torch, dev, main_err):
 # phase 3: the full-width model
 # ---------------------------------------------------------------------------
 
-def check_model(torch, dev, cfg, fp32_units=None):
+def check_model(torch, dev, cfg, fp32_layers=None):
     """Full-width model, random bf16 weights from a seeded generator.
 
     fp32: the model run in fp32 (each bf16 weight widened where it is
     used, so no fp32 copy is held), through the kernels and through the
     plain versions, agree to FP32_REL_L2, and the prefill->decode contract
-    holds at the model tests' tolerances; ``fp32_units`` cuts a hybrid's
-    depth for this check to that many units and its tail. bf16: a one-ulp rounding difference anywhere grows
-    through the random layers (on an H100 at 700 W the two bf16 paths of
-    llama3-3b differ by about 1.4e-2 in relative L2), so the kernels' bf16
-    logits are judged by their distance from the fp32 logits of the full
-    depth, which may exceed the plain bf16 path's by BF16_VS_PLAIN at
-    most."""
+    holds at the model tests' tolerances; ``fp32_layers`` cuts the depth
+    for this check. bf16: a one-ulp rounding difference anywhere grows
+    through the random layers (the JAX package's own bf16 logits drift
+    from its fp32 ones in the same way, further with each layer), so the
+    kernels' bf16 logits are judged by their distance from the fp32 logits
+    of the same depth, which may exceed the plain bf16 path's by
+    BF16_VS_PLAIN at most; at BF16_CUT_LAYERS, where the drift is small,
+    and at full depth."""
     import numpy as np
     from repro_torch.models import build_model
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -456,8 +480,8 @@ def check_model(torch, dev, cfg, fp32_units=None):
             f"{time.perf_counter() - t0:.1f} s")
         cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
         cut32, params_cut = cfg32, params
-        if fp32_units:
-            cut32, params_cut = hybrid_prefix(cfg32, params, fp32_units)
+        if fp32_layers:
+            cut32, params_cut = prefix(cfg32, params, fp32_layers)
         ker32 = build_model(cut32.replace(use_pallas=True))
         l32 = build_model(cut32).forward(params_cut, toks)[0]
         l32k = ker32.forward(params_cut, toks)[0]
@@ -478,27 +502,38 @@ def check_model(torch, dev, cfg, fp32_units=None):
             fail(f"{cfg.name}: fp32 model through the kernels disagrees "
                  "with the plain versions or breaks the prefill->decode "
                  "contract")
-        l32 = build_model(cfg32).forward(params, toks)[0]
-        lk = build_model(cfg.replace(use_pallas=True)).forward(params,
-                                                               toks)[0]
-        lp = build_model(cfg).forward(params, toks)[0]
-        e_k, e_p = rel_l2(torch, lk, l32), rel_l2(torch, lp, l32)
-        say(f"  bf16 logits vs fp32 at {cfg.num_layers} layers: kernels "
-            f"rel-L2 {e_k:.3e}, plain {e_p:.3e} (kernels <= "
-            f"{BF16_VS_PLAIN} x plain); kernels vs plain "
-            f"{rel_l2(torch, lk, lp):.3e}")
-        if not bool(torch.isfinite(lk).all()) or e_k > BF16_VS_PLAIN * e_p:
-            fail(f"{cfg.name}: bf16 model logits through the kernels are "
-                 "further from fp32 than the plain versions'")
+        for c16, p16 in (prefix(cfg, params, BF16_CUT_LAYERS),
+                         (cfg, params)):
+            c32 = c16.replace(dtype="float32", param_dtype="float32")
+            l32 = build_model(c32).forward(p16, toks)[0]
+            lk = build_model(c16.replace(use_pallas=True)).forward(p16,
+                                                                   toks)[0]
+            lp = build_model(c16).forward(p16, toks)[0]
+            e_k, e_p = rel_l2(torch, lk, l32), rel_l2(torch, lp, l32)
+            say(f"  bf16 logits vs fp32 at {c16.num_layers} layers: kernels"
+                f" rel-L2 {e_k:.3e}, plain {e_p:.3e} (kernels <= "
+                f"{BF16_VS_PLAIN} x plain); kernels vs plain "
+                f"{rel_l2(torch, lk, lp):.3e}")
+            if not bool(torch.isfinite(lk).all()) or \
+                    e_k > BF16_VS_PLAIN * e_p:
+                fail(f"{cfg.name}: bf16 model logits through the kernels "
+                     f"at {c16.num_layers} layers are further from fp32 "
+                     "than the plain versions'")
+            del l32, lk, lp
     del params
     torch.cuda.empty_cache()
 
 
-def hybrid_prefix(cfg, params, units):
-    """A hybrid cut to its first ``units`` units and its tail."""
-    layers = units * len(cfg.block_pattern) + len(params["tail"])
+def prefix(cfg, params, layers):
+    """The model cut to its first ``layers`` layers; a hybrid to as many
+    whole (rec, rec, attn) units (at least one) and its tail."""
+    if cfg.arch_type == "hybrid":
+        units = max(1, layers // len(cfg.block_pattern))
+        return (cfg.replace(num_layers=units * len(cfg.block_pattern)
+                            + len(params["tail"])),
+                dict(params, units=params["units"][:units]))
     return (cfg.replace(num_layers=layers),
-            dict(params, units=params["units"][:units]))
+            dict(params, layers=params["layers"][:layers]))
 
 
 def _leaves(tree):
@@ -684,21 +719,26 @@ def main() -> None:
     say("== phase 3: full-width models")
     for name in MODELS:
         cfg = get_config(name)
-        check_model(torch, dev, cfg, fp32_units=(
-            HYBRID_FP32_UNITS if cfg.arch_type == "hybrid" else None))
+        check_model(torch, dev, cfg, fp32_layers=(
+            HYBRID_FP32_LAYERS if cfg.arch_type == "hybrid" else None))
 
     say("== phase 4: serve under AGFT")
-    launches = {}
+    counts = {}                           # model -> kernel -> launches
     for name in MODELS:
-        counts = serve(torch, dev, get_config(name))
+        counts[name] = serve(torch, dev, get_config(name))
         torch.cuda.empty_cache()
-        for k, n in counts.items():
-            launches[k] = launches.get(k, 0) + n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_model", "shape")
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        kernel, models = ROWS[r["name"]]
+        r["launches_by_model"] = {m: counts[m][kernel] for m in models}
+        r["launches"] = sum(r["launches_by_model"].values())
+    for kernel in counts[MODELS[0]]:     # each serve launch is in one row
+        if sum(counts[m][kernel] for m in MODELS) != sum(
+                r["launches"] for r in rows if ROWS[r["name"]][0] == kernel):
+            fail(f"{kernel}: serve launches missing from the kernels line")
     say(f"card: {card}")
     say(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     say(json.dumps({"ok": True, "device": {

@@ -10,9 +10,11 @@
 // Head h reads B and C of group h / (H / G) in place, with no copy. The
 // state starts at 0, and y and the final state come out in fp32.
 //
-// What bounds it on the H100: operations. At Mamba-2's serving shapes
+// What bounds it on the H100: operations over long prompts (at one chunk of
+// 64 tokens, bytes and operations about even). At Mamba-2's serving shapes
 // (H = 64, P = 64, N = 128, chunks of up to 128) a chunk costs about
-// c^2 N / 2 + c P (c / 2 + N) + c P N multiply-adds per head against
+// c^2 N / 2 + c P (c / 2 + N) + c P N multiply-adds per head (the first
+// chunk skips the c P N of C.S_prev: its incoming state is 0) against
 // c (2N + P) input floats, so it is compute-heavy, and it must stay fp32
 // (no TF32: the model holds it to 2e-4). The design is the simple one:
 // one block of 256 threads per (batch, head), the state in shared memory
@@ -157,10 +159,12 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         float acc = 0.f;
         for (int j = 0; j <= i; ++j)
           acc = fmaf(att[ii * c + j], xs[j * P + p], acc);
-        const float* cr = Cs + i * NP;
-        const float* sr = Ss + p * NP;
         float inter = 0.f;
-        for (int n = 0; n < N; ++n) inter = fmaf(cr[n], sr[n], inter);
+        if (t0 > 0) {                      // the state is 0 before chunk 0
+          const float* cr = Cs + i * NP;
+          const float* sr = Ss + p * NP;
+          for (int n = 0; n < N; ++n) inter = fmaf(cr[n], sr[n], inter);
+        }
         yb[static_cast<long long>(t0 + i) * a.H * P + p] = acc + es[i] * inter;
       }
       __syncthreads();

@@ -80,9 +80,8 @@ def rglru_scan(x: torch.Tensor, log_a: torch.Tensor,
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 0):
-    """Sequential state-space oracle of the SSD kernel, token by token
-    (``chunk`` is taken for the kernel's signature and not used).
+             B: torch.Tensor, C: torch.Tensor):
+    """Sequential state-space oracle of the SSD kernel, token by token.
 
     x (b,s,h,p); dt (b,s,h); A (h,); B,C (b,s,g,n).
     Returns (y (b,s,h,p), final_state (b,h,p,n)), fp32."""

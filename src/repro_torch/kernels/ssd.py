@@ -3,8 +3,10 @@ and its count. The kernel and its design note are in
 ``repro_torch/csrc/ssd_scan.cu``; it replaces
 ``src/repro/kernels/ssd.py::ssd_scan_kernel``.
 
-What bounds it on the H100: operations, in fp32 on the CUDA cores (the
-model holds it to 2e-4, so no TF32). One block per (batch, head) walks the
+What bounds it on the H100: operations over a long prompt, in fp32 on the
+CUDA cores (the model holds it to 2e-4, so no TF32); at a 64-token prompt
+in one chunk, the bytes it moves and the products it needs take about as
+long. One block per (batch, head) walks the
 chunks in order with the (P, N) state in shared memory. B and C are read
 through their strides, group ``h // (H / G)`` for head ``h``, so the
 grouped layout is never repeated per head, and x is read in place from the
@@ -64,7 +66,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     CUDA tensor launches the kernel, on a CPU tensor runs the plain
     version."""
     if not _build.use_kernel(x):
-        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+        return ssd_scan_plain(x, dt, A, B, C)
     _check(x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
