@@ -7,14 +7,17 @@ Run from the root of a checkout. It imports the port only (never JAX or
 the JAX package ``repro``), needs one CUDA card, and exits non-zero on any
 failure, or when there is no card or no checkout beside it. Phases:
 
-1. Environment: the card's name and power limit, and the kernel build
-   (one ``nvcc`` per CUDA source, all at once, plus the Triton compile).
+1. Environment: the card's name and power limit, the kernel build (one
+   ``nvcc`` per CUDA source, all at once, plus the Triton compile), and
+   each attention kernel's registers and spill bytes from ptxas's report.
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, on the sweep shapes of ``tests/test_kernels.py`` and on the
    serving paths' shapes, at 2e-5 (fp32) and 2e-2 (bf16) elementwise, bf16
    also at BF16_REL_L2 over the whole output, the SSD scan at 2e-4 and the
    RG-LRU scan at 1e-5; then each timed with CUDA events beside its plain
-   version and, where one exists, one PyTorch library call.
+   version and, where one exists, one PyTorch library call, with its time
+   over the library call's (``x_library``) and over its bound
+   (``x_bound``).
 3. Models: full-width llama3-3b, mamba2-1.3b and recurrentgemma-9b from a
    seeded generator, one at a time; fp32 logits through the kernels
    against the plain versions (recurrentgemma-9b cut to 5 layers: a unit
@@ -92,6 +95,12 @@ ROWS = {"rmsnorm": ("rmsnorm", MODELS),
                                       ("recurrentgemma-9b",)),
         "ssd_scan": ("ssd_scan", ("mamba2-1.3b",)),
         "rglru_scan": ("rglru_scan", ("recurrentgemma-9b",))}
+
+
+# the port's kernels by a part of their device names in a profiler trace
+PORT_KERNELS = ("rmsnorm", "flash_fwd_kernel", "flash_mma_kernel",
+                "decode_partial_kernel", "decode_mma_kernel",
+                "decode_combine_kernel", "ssd_scan", "rglru_scan")
 
 
 def fail(msg: str) -> None:
@@ -438,12 +447,39 @@ def time_kernels(torch, dev, main_err):
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     for r in rows:
         r["max_abs_err"] = main_err[r["name"]]
+        r["x_library"] = (None if r["library_ms"] is None
+                          else r["ms"] / r["library_ms"])
+        r["x_bound"] = r["ms"] / r["bound_ms"]
         lib = ("n/a" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f}")
+               else f"{r['library_ms']:.4f} ms ({r['x_library']:.2f}x)")
         say(f"  {r['name']:16s} {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {lib} ms, "
-            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+            f"plain {r['plain_ms']:.4f} ms, library {lib}, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
+            f"{r['x_bound']:.1f}x)")
     return rows
+
+
+def report_registers(_build) -> None:
+    """Registers and spill bytes of each attention kernel, as ptxas
+    reported them when it built the library (names demangled by c++filt
+    where the machine has it)."""
+    for lib in ("flash_attention", "decode_attention"):
+        usage = sorted(_build.resource_usage(lib).items())
+        names = [k for k, _ in usage]
+        try:
+            out = subprocess.run(["c++filt"], input="\n".join(names),
+                                 capture_output=True, text=True, timeout=60)
+            if out.returncode == 0 and len(out.stdout.splitlines()) == \
+                    len(names):
+                names = [n.replace("(anonymous namespace)::", "")
+                         .split("(")[0].removeprefix("void ")
+                         for n in out.stdout.splitlines()]
+        except OSError:
+            pass
+        for name, (_, use) in zip(names, usage):
+            say(f"  {lib}: {use.get('registers')} registers, spill "
+                f"stores {use.get('spill_stores')} B, loads "
+                f"{use.get('spill_loads')} B: {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -670,6 +706,11 @@ def trace_decode(torch, dev, backend, steps: int = 4):
                     reverse=True)[:8]:
         say(f"    {e.self_device_time_total / steps / 1e3:8.4f}  "
             f"{e.count // steps:5d}  {e.key[:90]}")
+    say("  the port's kernels per step (ms, launches):")
+    for e in sorted(kernels, key=lambda e: e.key):
+        if any(n in e.key for n in PORT_KERNELS):
+            say(f"    {e.self_device_time_total / steps / 1e3:8.4f}  "
+                f"{e.count // steps:5d}  {e.key[:90]}")
     say("  top host ops per step (self cpu ms, calls):")
     for e in sorted(events, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:8]:
@@ -711,6 +752,7 @@ def main() -> None:
     torch.cuda.synchronize()
     say(f"  build: nvcc {t_nvcc:.1f} s (every CUDA source at once), "
         f"Triton rmsnorm compile {time.perf_counter() - t0 - t_nvcc:.1f} s")
+    report_registers(_build)
 
     say("== phase 2: kernels vs plain versions")
     main_err = check_kernels(torch, dev)
@@ -730,7 +772,7 @@ def main() -> None:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_by_model", "shape")
+            "x_library", "x_bound", "launches_by_model", "shape")
     for r in rows:
         kernel, models = ROWS[r["name"]]
         r["launches_by_model"] = {m: counts[m][kernel] for m in models}

@@ -5,12 +5,15 @@ for ``sm_90a`` into its own shared library, loaded with ``ctypes``. The
 build happens at first use, into ``build/kernels`` at the root of the
 checkout (or the directory that ``REPRO_TORCH_BUILD_DIR`` names), and is
 cached by a hash of the sources and flags. ``build_all`` starts one ``nvcc`` per source at once.
+Each build keeps ptxas's report beside its library; ``resource_usage``
+reads each kernel's registers and spill bytes from it.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("flash_attention", "decode_attention", "ssd_scan",
            "rglru_scan")
 
@@ -95,6 +98,7 @@ def _finish(name: str, started) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -125,6 +129,32 @@ def load(name: str) -> ctypes.CDLL:
                 lib.repro_error_string.argtypes = [ctypes.c_int]
                 _LIBS[name] = lib
     return lib
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_PROPS = re.compile(r"Function properties for (\w+)")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each kernel (by mangled name) of
+    ``csrc/<name>.cu``, from ptxas's report of its build."""
+    log = _lib_path(name).with_suffix(".log")
+    usage: Dict[str, Dict[str, int]] = {}
+    kernel = props = None
+    for line in log.read_text().splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            kernel = m.group(1)
+            usage[kernel] = {}
+        elif m := _PTXAS_PROPS.search(line):
+            props = m.group(1)
+        elif props in usage and (m := _PTXAS_SPILL.search(line)):
+            usage[props].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+        elif kernel and (m := _PTXAS_REGS.search(line)):
+            usage[kernel]["registers"] = int(m.group(1))
+    return usage
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -7,11 +7,11 @@ What bounds it on the H100: the bytes of the cache's valid slots. The
 kernel reads the (B, T, Hkv, D) cache through its strides; the reference
 wrapper's transposed copy (``repro/kernels/ops.py``) would move
 2 x 33.5 MB per layer per step at B = 8, T = 2048 in bf16. The first
-pass splits T into chunks so that about four blocks run on each SM
-(``split_plan``); the second merges them. A row with no valid slot gives
-0, as the TPU kernel does. Groups of more than 8 query heads per kv head
-(RecurrentGemma's 16 at head_dim 256) are split into head groups of at
-most 8 along the grid.
+pass splits T into chunks (``split_plan``: fp32, ``split_plan_mma``:
+bf16); the second merges them. A row with no valid slot gives 0, as the
+TPU kernel does. In bf16 the G <= 16 query heads of a kv head are the
+rows of one tensor-core tile, so a block reads its chunk of the cache once
+for all of them, and 16-slot tiles with no valid slot are never loaded.
 """
 from __future__ import annotations
 
@@ -31,7 +31,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 GMAX = 16       # most query heads per kv head the kernel takes
 HEAD_DIMS = (64, 128, 256)
-SPLIT = 128     # slots per block of the first pass are a multiple of this
+SPLIT = 128     # fp32: slots per block of the first pass, a multiple
+MMA_SPLIT = 64  # bf16: slots per block, a multiple (one stage of the ring)
+MMA_CHUNK_MAX = 1024   # bf16: most slots per block
 
 
 def _lib():
@@ -89,6 +91,20 @@ def split_plan(rows: int, T: int, num_sms: int):
     return chunk, -(-T // chunk)
 
 
+def split_plan_mma(rows: int, T: int, num_sms: int, D: int):
+    """(chunk, nsplit) of the bf16 kernel: chunks of a multiple of
+    MMA_SPLIT slots, at most MMA_CHUNK_MAX, about four blocks per SM at
+    head_dim 64 or 128 (three fit an SM's shared memory, and a prefix
+    cache leaves some blocks without a valid slot) and one at 256 (one
+    fits). On the H100 this picks the fastest chunk that
+    ``tools/tune_attention.py`` times at both decode shapes of the serving
+    path."""
+    want = max(1, -(-(1 if D >= 256 else 4) * num_sms // rows))
+    chunk = -(-T // want)
+    chunk = min(MMA_CHUNK_MAX, -(-chunk // MMA_SPLIT) * MMA_SPLIT)
+    return chunk, -(-T // chunk)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
@@ -100,7 +116,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _check(q, k_cache, v_cache, valid)
     B, _, H, D = q.shape
     _, T, Hkv, _ = k_cache.shape
-    chunk, nsplit = split_plan(B * Hkv, T, _num_sms(q.device.index or 0))
+    sms = _num_sms(q.device.index or 0)
+    chunk, nsplit = (split_plan(B * Hkv, T, sms) if q.dtype == torch.float32
+                     else split_plan_mma(B * Hkv, T, sms, D))
     o = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     part = torch.empty(B * Hkv * nsplit * (H // Hkv) * (D + 2),
                        dtype=torch.float32, device=q.device)

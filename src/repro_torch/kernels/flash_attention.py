@@ -6,8 +6,11 @@ plain version and its count. The kernel and its design note are in
 What bounds it on the H100: at the serving path's prefill shapes (B = 1,
 S <= 64, 24 query heads over 8 kv heads, D = 128, bf16) its bytes take
 under a microsecond, so each of the 28 calls per forward is bound by its
-launch. The kernel reads q, k and v through their (B, S, H, D) strides,
-with no transposed copy, and skips KV tiles wholly above the diagonal.
+launch and its latency. The kernel reads q, k and v through their
+(B, S, H, D) strides, with no transposed copy, and skips KV tiles wholly
+above the diagonal. In bf16 a warp owns 16 query rows of one head on the
+tensor cores, and a block takes up to four such row tiles of one head
+(64 rows), which share each staged K/V tile.
 """
 from __future__ import annotations
 

@@ -9,8 +9,11 @@ Inputs come from numpy with a seed. Tolerances: 2e-5 in fp32 and 2e-2 in
 bf16 for the attention kernels and RMSNorm, 2e-4 for the SSD scan and 1e-5
 for the RG-LRU scan (``tests/test_kernels.py``); 5e-4 for a small fp32
 model through the kernels against the same model through the plain
-versions.
+versions. A bf16 output must also lie within a relative L2 of 1e-3 of the
+plain version's, as ``chip_smoke.py`` holds it (``BF16_REL_L2``).
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+BF16_REL_L2 = 1e-3
 DTYPES = ["float32", "bfloat16"]
 
 # the sweeps of tests/test_kernels.py, a group of 3 (llama3-3b's) and the
@@ -36,9 +40,18 @@ DTYPES = ["float32", "bfloat16"]
 FLASH_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 128),
                 (2, 384, 6, 2, 64), (1, 40, 6, 2, 128), (1, 1, 24, 8, 128),
                 (1, 64, 24, 8, 128)]
+# the edges of the bf16 kernel's tiles: 16-row warp tiles and 64-key K/V
+# tiles cut by S, groups of 1 to 8 heads, both head dims
+FLASH_SHAPES += [(1, S, 2 * G, 2, D) for D in (64, 128) for G in (1, 2, 3, 4, 8)
+                 for S in (1, 15, 17, 40, 64, 65, 384)]
 DECODE_SHAPES = [(1, 512, 4, 4, 64), (2, 1024, 8, 2, 64), (4, 512, 4, 1, 128),
                  (2, 512, 6, 2, 128), (8, 2048, 24, 8, 128),
                  (8, 2048, 16, 1, 256), (2, 512, 12, 1, 256)]
+# the edges of the bf16 kernel's tiles: T = 520 is a multiple of no tile
+# (16-slot warp tiles, 64-slot stages), groups of 1 to 16 heads (the rows of
+# one 16-row tile), every head dim
+DECODE_SHAPES += [(2, 520, 2 * G, 2, D) for D in (64, 128, 256)
+                  for G in (1, 2, 3, 4, 6, 8, 12, 16)]
 RMS_SHAPES = [(4, 128), (2, 17, 256), (3, 5, 7, 512), (8, 3072),
               (64, 3072)]
 # (b, s, h, p, g, n, chunk): the sweep of tests/test_kernels.py, then
@@ -71,8 +84,10 @@ def _dev(a, dtype, device):
 
 
 def _close(got, want, dtype):
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), **TOL[dtype])
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    np.testing.assert_allclose(g, w, **TOL[dtype])
+    if dtype == "bfloat16":
+        assert np.linalg.norm(g - w) <= BF16_REL_L2 * np.linalg.norm(w)
 
 
 @pytest.mark.parametrize("B,S,H,Hkv,D", FLASH_SHAPES)
@@ -86,12 +101,27 @@ def test_flash_kernel_matches_plain(cuda, B, S, H, Hkv, D, dtype):
     _close(got, fa.flash_attention_plain(q, k, v), dtype)
 
 
-def test_flash_kernel_noncausal_and_strided(cuda):
-    """Non-causal, and q/k/v read through the strides of a fused qkv."""
-    qkv = _dev(_normal(1, (2, 128, 8, 64))[0], "float32", cuda)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_noncausal_and_strided(cuda, causal, dtype):
+    """Non-causal and causal, q/k/v read through the strides of a fused
+    qkv."""
+    qkv = _dev(_normal(1, (2, 128, 8, 64))[0], dtype, cuda)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
-    got = fa.flash_attention(q, k, v, causal=False)
-    _close(got, fa.flash_attention_plain(q, k, v, causal=False), "float32")
+    got = fa.flash_attention(q, k, v, causal=causal)
+    _close(got, fa.flash_attention_plain(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("S", [40, 130])
+def test_flash_kernel_reads_unaligned_rows(cuda, S):
+    """Rows that are not 16-byte aligned (a head_dim stride of 1 inside rows
+    of D + 1) take the kernel's synchronous copies, with the same output."""
+    B, H, Hkv, D = 1, 6, 2, 64
+    q, k, v = (_dev(a, "bfloat16", cuda)[..., :D] for a in
+               _normal(3, (B, S, H, D + 1), (B, S, Hkv, D + 1),
+                       (B, S, Hkv, D + 1)))
+    _close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v),
+           "bfloat16")
 
 
 @pytest.mark.parametrize("B,T,H,Hkv,D", DECODE_SHAPES)
@@ -109,7 +139,10 @@ def test_decode_kernel_matches_plain(cuda, B, T, H, Hkv, D, dtype):
 
 
 @pytest.mark.parametrize("B,T,H,Hkv,D", [(2, 512, 4, 2, 64),
-                                         (8, 2048, 16, 1, 256)])
+                                         (8, 2048, 16, 1, 256),
+                                         (2, 520, 6, 2, 128),
+                                         (2, 520, 32, 2, 256),
+                                         (3, 520, 2, 2, 64)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_ring_buffer_validity(cuda, B, T, H, Hkv, D, dtype):
     q, kc, vc = (_dev(a, dtype, cuda) for a in
@@ -118,6 +151,88 @@ def test_decode_kernel_ring_buffer_validity(cuda, B, T, H, Hkv, D, dtype):
         np.random.default_rng(6).random((B, T)) < 0.7).to(cuda)
     _close(dec.decode_attention(q, kc, vc, valid),
            dec.decode_attention_plain(q, kc, vc, valid), dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_reads_a_strided_cache(cuda, D, dtype):
+    """Caches that are a slice of a larger buffer (along slots and heads),
+    a q that is a slice of a fused projection, and a validity row with
+    holes."""
+    B, T, H, Hkv = 2, 520, 12, 2
+    big_k, big_v, qkv = _normal(9, (B, T + 9, Hkv + 3, D),
+                                (B, T + 9, Hkv + 3, D), (B, 1, H + 4, D))
+    kc = _dev(big_k, dtype, cuda)[:, 5:5 + T, 1:1 + Hkv]
+    vc = _dev(big_v, dtype, cuda)[:, 2:2 + T, 3:3 + Hkv]
+    q = _dev(qkv, dtype, cuda)[:, :, 2:2 + H]
+    valid = torch.from_numpy(
+        np.random.default_rng(10).random((B, T)) < 0.5).to(cuda)
+    _close(dec.decode_attention(q, kc, vc, valid),
+           dec.decode_attention_plain(q, kc, vc, valid), dtype)
+    # a q whose rows are not 16-byte aligned: the synchronous copy
+    q1 = _dev(_normal(13, (B, 1, H, D + 1))[0], dtype, cuda)[..., :D]
+    _close(dec.decode_attention(q1, kc, vc, valid),
+           dec.decode_attention_plain(q1, kc, vc, valid), dtype)
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("B,T,H,Hkv,D", [(8, 2048, 24, 8, 128),
+                                         (8, 2048, 16, 1, 256),
+                                         (2, 520, 6, 2, 64)])
+def test_decode_kernel_chunks(cuda, monkeypatch, chunk, B, T, H, Hkv, D):
+    """Every chunk of slots per block ``tools/tune_attention.py`` times
+    gives the plain version's output in bf16, the all-invalid row 0."""
+    monkeypatch.setattr(dec, "split_plan_mma",
+                        lambda rows, T, sms, D: (chunk, -(-T // chunk)))
+    q, kc, vc = _normal(11, (B, 1, H, D), (B, T, Hkv, D), (B, T, Hkv, D))
+    lengths = np.random.default_rng(12).integers(1, T + 1, B)
+    valid = np.arange(T)[None] < lengths[:, None]
+    valid[-1] = False
+    args = (_dev(q, "bfloat16", cuda), _dev(kc, "bfloat16", cuda),
+            _dev(vc, "bfloat16", cuda), torch.from_numpy(valid).to(cuda))
+    got = dec.decode_attention(*args)
+    assert bool((got[-1] == 0).all())
+    _close(got, dec.decode_attention_plain(*args), "bfloat16")
+
+
+# sha256 of the fp32 attention kernels' output bytes, recorded on an H100
+# with the block counts of its 132 SMs: flash at llama3-3b's 64-token
+# bucket, decode at llama3-3b's cache (a group of 3) and recurrentgemma-9b's
+# (a group of 16 at head_dim 256). The fp32 path keeps its order of sums;
+# a change to it shows here, where a tolerance would let it pass.
+FP32_DIGESTS = {
+    "flash (1, 64, 24, 8, 128)":
+        "2376b825b742023aeb26e52726258a4761cc045a166c40f8d7d3e9da28cc04fe",
+    "decode (8, 2048, 24, 8, 128)":
+        "8e98edf107d89e1d5132103347840c5b02fd4ed81416d79b39c508d7721234a7",
+    "decode (8, 2048, 16, 1, 256)":
+        "ad7675f715931fce53fdab68107dc5eb39b85e260398176a012e2db36c842897",
+}
+
+
+def _fp32_output(case, device):
+    """The fp32 kernel's output of one case of ``FP32_DIGESTS``."""
+    kind, shape = case.split(" ", 1)
+    B, L, H, Hkv, D = (int(x) for x in shape.strip("()").split(", "))
+    q, k, v = (torch.from_numpy(a).to(device) for a in _normal(
+        14, (B, L if kind == "flash" else 1, H, D), (B, L, Hkv, D),
+        (B, L, Hkv, D)))
+    if kind == "flash":
+        return fa.flash_attention(q, k, v)
+    lengths = np.random.default_rng(15).integers(1, L + 1, B)
+    valid = np.arange(L)[None] < lengths[:, None]
+    valid[-1] = False
+    return dec.decode_attention(q, k, v, torch.from_numpy(valid).to(device))
+
+
+def _digest(t):
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("case", list(FP32_DIGESTS))
+def test_fp32_attention_kernels_keep_their_bits(cuda, monkeypatch, case):
+    monkeypatch.setattr(dec, "_num_sms", lambda index: 132)
+    assert _digest(_fp32_output(case, cuda)) == FP32_DIGESTS[case]
 
 
 def _ssd_inputs(seed, b, s, h, p, g, n, device):

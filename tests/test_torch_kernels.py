@@ -198,3 +198,84 @@ def test_ops_take_no_tile_arguments():
     with pytest.raises(TypeError):
         ops.decode_attention(q[:, :1], q, q,
                              torch.ones(1, 8, dtype=torch.bool), block_k=64)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels' rounding (CPU emulation) against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+def _mma_attention(q, k, v, live, *, prescale_q=False, split_p=True):
+    """The bf16 attention kernels' arithmetic (csrc/flash_attention.cu,
+    csrc/decode_attention.cu): bf16 q and k multiplied exactly and summed
+    in fp32, the D^-0.5 scale applied to the fp32 scores, the softmax in
+    fp32, and P entering P.V as hi = bf16(P) plus lo = bf16(P - hi) against
+    bf16 V, the output rounded once. ``prescale_q`` rounds q * D^-0.5 to
+    bf16 before the product instead; ``split_p=False`` takes one bf16 P.
+    q (B,S,H,D); k, v (B,T,Hkv,D); live broadcasts to (B,Hkv,G,S,T)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, D).float()
+    if prescale_q:
+        qg = (qg * D ** -0.5).bfloat16().float()
+    s = torch.einsum("bshgd,bthd->bhgst", qg, k.float())
+    if not prescale_q:
+        s = s * D ** -0.5
+    s = torch.where(live, s, -1e30)
+    p = torch.where(live, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    hi = p.bfloat16().float()
+    parts = [hi, (p - hi).bfloat16().float()] if split_p else [hi]
+    out = sum(torch.einsum("bhgst,bthd->bshgd", x, v.float())
+              for x in parts)
+    l = p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    out = out / torch.where(l == 0.0, 1.0, l)
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _mma_case(kind, B, T, H, Hkv, D):
+    """(the Pallas kernel's bf16 output, the emulation's inputs) on numpy
+    inputs: decode with prefix validity, or causal prefill (S = T)."""
+    if kind == "decode":
+        q, kc, vc, valid = _decode_inputs(14, B, T, H, Hkv, D)
+        jargs = (_jax(q, "bfloat16"), _jax(kc, "bfloat16"),
+                 _jax(vc, "bfloat16"), jnp.asarray(valid))
+        want = jops.decode_attention(*jargs)
+        live = torch.from_numpy(valid)[:, None, None, None, :]
+    else:
+        q, kc, vc = _normal(15, (B, T, H, D), (B, T, Hkv, D), (B, T, Hkv, D))
+        want = jops.flash_attention(_jax(q, "bfloat16"), _jax(kc, "bfloat16"),
+                                    _jax(vc, "bfloat16"), causal=True)
+        live = torch.tril(torch.ones(T, T, dtype=torch.bool))
+    return want, (_torch(q, "bfloat16"), _torch(kc, "bfloat16"),
+                  _torch(vc, "bfloat16"), live)
+
+
+MMA_CASES = [("decode", 2, 512, 6, 2, 128),    # llama3-3b's group and D
+             ("decode", 2, 512, 16, 1, 256),   # recurrentgemma-9b's
+             ("decode", 2, 256, 6, 2, 64),
+             ("flash", 1, 64, 6, 2, 128)]      # llama3-3b's prefill bucket
+
+
+@pytest.mark.parametrize("kind,B,T,H,Hkv,D", MMA_CASES)
+def test_mma_rounding_matches_pallas(kind, B, T, H, Hkv, D):
+    """The kernels' bf16 scheme lies within the relative L2 of 1e-3 that
+    ``chip_smoke.py`` and the card tests hold the kernels to, against the
+    Pallas kernels in interpret mode on the same bf16 inputs."""
+    want, args = _mma_case(kind, B, T, H, Hkv, D)
+    assert _rel_l2(_mma_attention(*args).float().numpy(), want) <= 1e-3
+
+
+@pytest.mark.parametrize("kind,B,T,H,Hkv,D",
+                         [c for c in MMA_CASES if c[-1] == 128])
+def test_mma_rounding_shortcuts_miss_the_check(kind, B, T, H, Hkv, D):
+    """Why the kernels keep the scale in fp32 and split P: at head_dim 128
+    (D^-0.5 is no power of two) q pre-scaled in bf16 misses 1e-3, and so
+    does one bf16 P at every head_dim."""
+    want, args = _mma_case(kind, B, T, H, Hkv, D)
+    for shortcut in (dict(prescale_q=True), dict(split_p=False)):
+        got = _mma_attention(*args, **shortcut).float().numpy()
+        assert _rel_l2(got, want) > 1e-3, shortcut
