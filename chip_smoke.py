@@ -8,16 +8,20 @@ the JAX package ``repro``), needs one CUDA card, and exits non-zero on any
 failure, or when there is no card or no checkout beside it. Phases:
 
 1. Environment: the card's name and power limit, the kernel build (one
-   ``nvcc`` per CUDA source, all at once, plus the Triton compile), and
-   each attention kernel's registers and spill bytes from ptxas's report.
+   ``nvcc`` per CUDA source, all five at once), and each kernel's
+   registers and spill bytes from ptxas's report.
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, on the sweep shapes of ``tests/test_kernels.py`` and on the
    serving paths' shapes, at 2e-5 (fp32) and 2e-2 (bf16) elementwise, bf16
    also at BF16_REL_L2 over the whole output, the SSD scan at 2e-4 and the
-   RG-LRU scan at 1e-5; then each timed with CUDA events beside its plain
+   RG-LRU scan at 1e-5; the fused RMSNorm's residual sum must equal
+   ``x + r`` bit for bit. Then each timed with CUDA events beside its plain
    version and, where one exists, one PyTorch library call, with its time
    over the library call's (``x_library``) and over its bound
-   (``x_bound``).
+   (``x_bound``), and its own device time from ``torch.profiler``
+   (``kernel_us``); RMSNorm also by the host's time per call
+   (``host_us``), and the fused RMSNorm beside the add and the norm
+   launched apart (``unfused_ms``).
 3. Models: full-width llama3-3b, mamba2-1.3b and recurrentgemma-9b from a
    seeded generator, one at a time; fp32 logits through the kernels
    against the plain versions (recurrentgemma-9b cut to 5 layers: a unit
@@ -26,7 +30,8 @@ failure, or when there is no card or no checkout beside it. Phases:
 4. Serve: ``InferenceEngine`` + ``TorchBackend`` + the AGFT tuner over 8
    ``normal`` requests for each of the three models, the launch counts set
    to 0 before each and read after it; each kernel of a model's path must
-   have run there, as many times as the path says.
+   have run there, as many times as the path says, and as many RMSNorm
+   launches must have taken the residual add in.
 
 The last lines are a JSON object with each kernel's numbers (a row per
 kernel and timed shape; its launches are those of the serve runs whose
@@ -68,14 +73,20 @@ SWEEP_DECODE = [(1, 512, 4, 4, 64), (2, 1024, 8, 2, 64), (4, 512, 4, 1, 128)]
 MAIN_DECODE = (8, 2048, 24, 8, 128)
 SWEEP_RMS = [(4, 128), (2, 17, 256), (3, 5, 7, 512)]
 MAIN_RMS = [(8, 3072), (64, 3072)]
+HOST_CALLS = 200         # RMSNorm launches timed on the host's clock
+# keys of some rows only: RMSNorm's host time per call, and the fused
+# RMSNorm's time with the add and the norm launched apart
+OPTIONAL = ("host_us", "unfused_ms")
 # recurrentgemma-9b's decode: 16 query heads over 1 kv head at head_dim
 # 256, against the 2048-slot ring of its local attention
 WIDE_DECODE = (8, 2048, 16, 1, 256)
 # (b, s, h, p, g, n, chunk): the test_ssd_sweep shapes; mamba2-1.3b's
 # prefill buckets of 1, 2 and 64 tokens (chunk = s); and 256 (chunk 128)
 SWEEP_SSD = [(1, 128, 4, 64, 1, 64, 32), (2, 256, 8, 32, 2, 32, 64),
-             (1, 64, 2, 64, 1, 128, 16), (1, 256, 64, 64, 1, 128, 128)]
+             (1, 64, 2, 64, 1, 128, 16), (1, 256, 64, 64, 1, 128, 128),
+             (8, 64, 64, 64, 1, 128, 64)]
 MAIN_SSD = [(1, s, 64, 64, 1, 128, s) for s in (1, 2, 64)]
+LONG_SSD = (1, 256, 64, 64, 1, 128, 128)   # two chunks of the config's 128
 # (B, S, W): the test_rglru_sweep shapes; recurrentgemma-9b's width
 SWEEP_RGLRU = [(1, 64, 128), (2, 256, 256), (3, 128, 384)]
 MAIN_RGLRU = [(1, 64, 4096), (1, 256, 4096)]
@@ -89,18 +100,25 @@ BF16_CUT_LAYERS = 2
 # each timed row of the kernels line: its kernel, and the serve runs whose
 # path launches that kernel at the row's shape (the row counts theirs)
 ROWS = {"rmsnorm": ("rmsnorm", MODELS),
+        "add_rmsnorm": ("rmsnorm_fused", MODELS),
         "flash_attention": ("flash_attention", ("llama3-3b",)),
         "decode_attention": ("decode_attention", ("llama3-3b",)),
         "decode_attention_d256_g16": ("decode_attention",
                                       ("recurrentgemma-9b",)),
         "ssd_scan": ("ssd_scan", ("mamba2-1.3b",)),
+        "ssd_scan_c128": ("ssd_scan", ()),
         "rglru_scan": ("rglru_scan", ("recurrentgemma-9b",))}
+# the rmsnorm row counts every launch of the RMSNorm kernel, the
+# add_rmsnorm row those among them that took the residual add in; the
+# serve runs prefill at most 64 tokens, so no serve launch is at the
+# chunk-128 SSD row's shape
 
 
 # the port's kernels by a part of their device names in a profiler trace
-PORT_KERNELS = ("rmsnorm", "flash_fwd_kernel", "flash_mma_kernel",
+PORT_KERNELS = ("rmsnorm_kernel", "flash_fwd_kernel", "flash_mma_kernel",
                 "decode_partial_kernel", "decode_mma_kernel",
-                "decode_combine_kernel", "ssd_scan", "rglru_scan")
+                "decode_combine_kernel", "ssd_scan_kernel",
+                "rglru_scan_kernel")
 
 
 def fail(msg: str) -> None:
@@ -162,6 +180,41 @@ def device_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def kernel_us(torch, fn, reps: int = 30, names=PORT_KERNELS) -> float:
+    """The device time of the port's kernels that one call of ``fn``
+    launches, in us: ``torch.profiler`` over ``reps`` calls, summed over the
+    kernels whose names hold one of ``names``. Unlike ``device_ms`` it
+    leaves out the launch gaps and the event pair."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU
+                and any(n in e.key for n in names))
+    if not total:
+        fail(f"the profiler saw none of the kernels {names}")
+    return total / reps
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """The host's time per call, in us, over ``calls`` calls enqueued with
+    no synchronize between them (after a warm-up)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
+
+
 def bound_ms(nbytes: float, flops: float, dtype_name: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
@@ -220,10 +273,16 @@ def check_kernels(torch, dev):
     for dn, dt in dtypes.items():
         for shape in SWEEP_RMS + MAIN_RMS:
             x = randn(torch, gen, shape, dt)
+            r = randn(torch, gen, shape, dt)
             w = (1.0 + 0.1 * randn(torch, gen, (shape[-1],),
                                    torch.float32)).to(dt)
             record("rmsnorm", str(shape), dn, rms.rmsnorm(x, w),
                    rms.rmsnorm_plain(x, w), shape in MAIN_RMS)
+            s_k, y_k = rms.add_rmsnorm(x, r, w)
+            if not torch.equal(s_k, x + r):
+                failures.append(f"add_rmsnorm {shape} {dn}: s != x + r")
+            record("add_rmsnorm", str(shape), dn, y_k,
+                   rms.add_rmsnorm_plain(x, r, w)[1], shape in MAIN_RMS)
         for (B, S, H, Hkv, D) in SWEEP_FLASH + MAIN_FLASH:
             q = randn(torch, gen, (B, S, H, D), dt)
             k = randn(torch, gen, (B, S, Hkv, D), dt)
@@ -269,9 +328,11 @@ def check_kernels(torch, dev):
         y, st = ssd.ssd_scan(*args, chunk=chunk)
         y_r, st_r = ssd.ssd_scan_plain(*args)
         case = f"b{b} s{s} h{h} p{p} g{g} n{n} c{chunk}"
-        record("ssd_scan", case + " y", "float32", y, y_r, main, "ssd")
-        record("ssd_scan", case + " state", "float32", st, st_r, main,
-               "ssd")
+        row = ("ssd_scan_c128" if (b, s, h, p, g, n, chunk) == LONG_SSD
+               else "ssd_scan")
+        main = main or row == "ssd_scan_c128"
+        record(row, case + " y", "float32", y, y_r, main, "ssd")
+        record(row, case + " state", "float32", st, st_r, main, "ssd")
     for (B, S, W) in SWEEP_RGLRU + MAIN_RGLRU:
         args = rglru_inputs(torch, gen, B, S, W)
         ys, hl = lru.rglru_scan(*args)
@@ -332,22 +393,42 @@ def time_kernels(torch, dev, main_err):
             say(f"  library call for {what} unavailable: {e}")
             return None
 
-    # rmsnorm at the decode step's shape: 8 rows of 3072
+    # rmsnorm at the decode step's shape: 8 rows of 3072, alone and with
+    # the residual add taken in
     R, D = MAIN_RMS[0]
     x = randn(torch, gen, (R, D), bf)
+    r = randn(torch, gen, (R, D), bf)
     w = (1.0 + 0.1 * randn(torch, gen, (D,), torch.float32)).to(bf)
     nbytes = 2 * R * D * 2 + D * 2
     b_ms, b_by = bound_ms(nbytes, 4.0 * R * D, "float32")
     rows.append(dict(
-        name="rmsnorm", route="triton",
-        source="src/repro_torch/kernels/rmsnorm.py",
+        name="rmsnorm", route="cuda",
+        source="src/repro_torch/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:23",
         shape=f"x ({R}, {D}) bf16",
         ms=device_ms(torch, lambda: rms.rmsnorm(x, w)),
         plain_ms=device_ms(torch, lambda: rms.rmsnorm_plain(x, w)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms(lambda: F.rms_norm(x, (D,), w, 1e-6),
-                          "rmsnorm")))
+                          "rmsnorm"),
+        kernel_us=kernel_us(torch, lambda: rms.rmsnorm(x, w)),
+        host_us=host_us(torch, lambda: rms.rmsnorm(x, w))))
+    # x, r, s, y and the weight, each once; the add and the norm
+    nbytes = 4 * R * D * 2 + D * 2
+    b_ms, b_by = bound_ms(nbytes, 5.0 * R * D, "float32")
+    say("  library call for add_rmsnorm: none (no single PyTorch call "
+        "adds the residual and takes the norm)")
+    rows.append(dict(
+        name="add_rmsnorm", route="cuda",
+        source="src/repro_torch/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:23",
+        shape=f"x, r ({R}, {D}) bf16",
+        ms=device_ms(torch, lambda: rms.add_rmsnorm(x, r, w)),
+        plain_ms=device_ms(torch, lambda: rms.add_rmsnorm_plain(x, r, w)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        unfused_ms=device_ms(torch, lambda: rms.rmsnorm(x + r, w)),
+        kernel_us=kernel_us(torch, lambda: rms.add_rmsnorm(x, r, w)),
+        host_us=host_us(torch, lambda: rms.add_rmsnorm(x, r, w))))
     # flash prefill at the largest prefill bucket
     B, S, H, Hkv, Dh = MAIN_FLASH[-1]
     q = randn(torch, gen, (B, S, H, Dh), bf)
@@ -366,7 +447,8 @@ def time_kernels(torch, dev, main_err):
         plain_ms=device_ms(torch, lambda: fa.flash_attention_plain(q, k, v)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), "flash")))
+            qt, kt, vt, is_causal=True, enable_gqa=True), "flash"),
+        kernel_us=kernel_us(torch, lambda: fa.flash_attention(q, k, v))))
     def decode_timing(shape, max_len):
         """The decode kernel against a cache of ragged validity: each row
         holds 1..max_len tokens (past T: a ring that wrapped, all live)."""
@@ -391,7 +473,9 @@ def time_kernels(torch, dev, main_err):
                 torch, lambda: dec.decode_attention_plain(q, kc, vc, valid)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True), "decode"))
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), "decode"),
+            kernel_us=kernel_us(
+                torch, lambda: dec.decode_attention(q, kc, vc, valid)))
 
     # decode at llama3-3b's cache shape, and at recurrentgemma-9b's
     # (16 query heads over 1 kv head at head_dim 256, a 2048-slot ring)
@@ -404,31 +488,40 @@ def time_kernels(torch, dev, main_err):
             source="src/repro_torch/csrc/decode_attention.cu",
             replaces="src/repro/kernels/decode_attention.py:57",
             **decode_timing(shape, max_len)))
-    # SSD at mamba2-1.3b's largest prefill bucket (64 tokens, chunk 64).
-    # The bound counts the products the function needs, in fp32 (no tensor
-    # core): C.B^T on the causal half once per (batch, group, chunk), as
-    # the heads of a group share it; per head att.x on the causal half,
-    # the state update, and C.S_prev for every chunk but the first, whose
-    # incoming state is 0
-    b, s, h, p, g, n, c = MAIN_SSD[-1]
-    args = ssd_inputs(torch, gen, b, s, h, p, g, n, mamba2_decay=True)
-    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
-                  + b * h * p * n)
-    tri = s // c * c * (c + 1) / 2
-    flops = 2.0 * b * (g * tri * n
-                       + h * (tri * p + s * p * n + (s - c) * p * n))
-    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    # SSD at mamba2-1.3b's largest prefill bucket (64 tokens, chunk 64),
+    # and at 256 tokens in two chunks of the config's 128. The bound counts
+    # the products the function needs, in fp32 (the CUDA cores' rate: the
+    # 3xTF32 products do fp32 work): C.B^T on the causal half once per
+    # (batch, group, chunk), as the heads of a group share it; per head
+    # att.x on the causal half, the state update, and C.S_prev for every
+    # chunk but the first, whose incoming state is 0
     say("  library call for ssd_scan: none (no single PyTorch call "
         "computes the chunked SSD scan)")
-    rows.append(dict(
-        name="ssd_scan", route="cuda",
-        source="src/repro_torch/csrc/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd.py:66",
-        shape=f"x ({b}, {s}, {h}, {p}), B/C ({b}, {s}, {g}, {n}), "
-              f"chunk {c}, fp32",
-        ms=device_ms(torch, lambda: ssd.ssd_scan(*args, chunk=c)),
-        plain_ms=device_ms(torch, lambda: ssd.ssd_scan_plain(*args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    for row, (b, s, h, p, g, n, c) in (("ssd_scan", MAIN_SSD[-1]),
+                                       ("ssd_scan_c128", LONG_SSD)):
+        args = ssd_inputs(torch, gen, b, s, h, p, g, n, mamba2_decay=True)
+        nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+                      + b * h * p * n)
+        tri = s // c * c * (c + 1) / 2
+        flops = 2.0 * b * (g * tri * n
+                           + h * (tri * p + s * p * n + (s - c) * p * n))
+        b_ms, b_by = bound_ms(nbytes, flops, "float32")
+        ps = ssd.plan(b, s, h, p, g, n, c,
+                      torch.cuda.get_device_properties(0)
+                      .multi_processor_count)[0]
+        rows.append(dict(
+            name=row, route="cuda",
+            source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd.py:66",
+            shape=f"x ({b}, {s}, {h}, {p}), B/C ({b}, {s}, {g}, {n}), "
+                  f"chunk {c}, fp32; {b * h * -(-p // ps)} blocks of P-slice "
+                  f"{ps}, clusters of "
+                  f"{ssd.cluster_size(b, s, h, p, g, n, c)}",
+            ms=device_ms(torch, lambda: ssd.ssd_scan(*args, chunk=c)),
+            plain_ms=device_ms(torch, lambda: ssd.ssd_scan_plain(*args)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            kernel_us=kernel_us(torch,
+                                lambda: ssd.ssd_scan(*args, chunk=c))))
     # RG-LRU at recurrentgemma-9b's largest prefill bucket: exp, the
     # clip, sqrt and two products a step, each counted as one operation
     B, S, W = MAIN_RGLRU[0]
@@ -444,7 +537,8 @@ def time_kernels(torch, dev, main_err):
         shape=f"x, log_a ({B}, {S}, {W}), fp32",
         ms=device_ms(torch, lambda: lru.rglru_scan(*args)),
         plain_ms=device_ms(torch, lambda: lru.rglru_scan_plain(*args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        kernel_us=kernel_us(torch, lambda: lru.rglru_scan(*args))))
     for r in rows:
         r["max_abs_err"] = main_err[r["name"]]
         r["x_library"] = (None if r["library_ms"] is None
@@ -452,18 +546,19 @@ def time_kernels(torch, dev, main_err):
         r["x_bound"] = r["ms"] / r["bound_ms"]
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms ({r['x_library']:.2f}x)")
-        say(f"  {r['name']:16s} {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {lib}, "
-            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
-            f"{r['x_bound']:.1f}x)")
+        extra = "".join(f", {k} {r[k]:.4f}" for k in OPTIONAL if k in r)
+        say(f"  {r['name']:16s} {r['shape']}: kernel {r['ms']:.4f} ms "
+            f"({r['kernel_us']:.3f} us its own), plain {r['plain_ms']:.4f} "
+            f"ms, library {lib}, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}; {r['x_bound']:.1f}x){extra}")
     return rows
 
 
 def report_registers(_build) -> None:
-    """Registers and spill bytes of each attention kernel, as ptxas
-    reported them when it built the library (names demangled by c++filt
-    where the machine has it)."""
-    for lib in ("flash_attention", "decode_attention"):
+    """Registers, stack-frame and spill bytes of each kernel, as ptxas
+    reported them when it built the library (names demangled by c++filt where the
+    machine has it)."""
+    for lib in _build.SOURCES:
         usage = sorted(_build.resource_usage(lib).items())
         names = [k for k, _ in usage]
         try:
@@ -477,9 +572,9 @@ def report_registers(_build) -> None:
         except OSError:
             pass
         for name, (_, use) in zip(names, usage):
-            say(f"  {lib}: {use.get('registers')} registers, spill "
-                f"stores {use.get('spill_stores')} B, loads "
-                f"{use.get('spill_loads')} B: {name}")
+            say(f"  {lib}: {use.get('registers')} registers, stack "
+                f"{use.get('stack')} B, spill stores {use.get('spill_stores')}"
+                f" B, loads {use.get('spill_loads')} B: {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -648,7 +743,9 @@ def path_launches(cfg, backend):
     """The launches each kernel of the model's path makes over the serve
     phase, from the forwards and decode steps it ran: per forward and per
     decode step, RMSNorm 2L+1 (dense, hybrid) or L+1 (Mamba-2: its gated
-    norm stays plain, as in the JAX package); per forward, flash attention
+    norm stays plain, as in the JAX package), of which all but the first
+    (after the embedding) take the residual add in (``rmsnorm_fused``);
+    per forward, flash attention
     L (dense), the SSD scan L (Mamba-2, at every length) and the RG-LRU
     scan once per rec layer (hybrid, at lengths of 2 and more: a one-token
     forward takes the inline step); per decode step, decode attention L
@@ -657,17 +754,18 @@ def path_launches(cfg, backend):
     L = cfg.num_layers
     fwd, dec = backend.prefill_steps, backend.decode_steps
     if cfg.arch_type == "ssm":
-        return {"rmsnorm": (L + 1) * (fwd + dec), "ssd_scan": L * fwd}
+        return {"rmsnorm": (L + 1) * (fwd + dec),
+                "rmsnorm_fused": L * (fwd + dec), "ssd_scan": L * fwd}
+    norms = {"rmsnorm": (2 * L + 1) * (fwd + dec),
+             "rmsnorm_fused": 2 * L * (fwd + dec)}
     if cfg.arch_type == "hybrid":
         pat = cfg.block_pattern
         units, tail = L // len(pat), L % len(pat)
         rec = units * pat.count("rec") + tail
         multi = sum(n >= 2 for n in backend.prefill_lengths)
-        return {"rmsnorm": (2 * L + 1) * (fwd + dec),
-                "rglru_scan": rec * multi,
+        return {**norms, "rglru_scan": rec * multi,
                 "decode_attention": units * pat.count("attn") * dec}
-    return {"rmsnorm": (2 * L + 1) * (fwd + dec),
-            "flash_attention": L * fwd, "decode_attention": L * dec}
+    return {**norms, "flash_attention": L * fwd, "decode_attention": L * dec}
 
 
 def trace_decode(torch, dev, backend, steps: int = 4):
@@ -743,15 +841,10 @@ def main() -> None:
         f"{torch.cuda.get_device_name(0)}")
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels import rmsnorm as rms
     t0 = time.perf_counter()
     _build.build_all()
-    t_nvcc = time.perf_counter() - t0
-    x = torch.ones((1, 3072), dtype=torch.bfloat16, device=dev)
-    rms.rmsnorm(x, x[0])
-    torch.cuda.synchronize()
-    say(f"  build: nvcc {t_nvcc:.1f} s (every CUDA source at once), "
-        f"Triton rmsnorm compile {time.perf_counter() - t0 - t_nvcc:.1f} s")
+    say(f"  build: nvcc {time.perf_counter() - t0:.1f} s (all "
+        f"{len(_build.SOURCES)} CUDA sources at once)")
     report_registers(_build)
 
     say("== phase 2: kernels vs plain versions")
@@ -772,7 +865,8 @@ def main() -> None:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "x_library", "x_bound", "launches_by_model", "shape")
+            "x_library", "x_bound", "kernel_us", "launches_by_model",
+            "shape")
     for r in rows:
         kernel, models = ROWS[r["name"]]
         r["launches_by_model"] = {m: counts[m][kernel] for m in models}
@@ -782,7 +876,8 @@ def main() -> None:
                 r["launches"] for r in rows if ROWS[r["name"]][0] == kernel):
             fail(f"{kernel}: serve launches missing from the kernels line")
     say(f"card: {card}")
-    say(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    say(json.dumps({"kernels": [
+        {k: r[k] for k in keys + OPTIONAL if k in r} for r in rows]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,7 @@ serving path, each with its plain PyTorch version and a launch count:
 =================  =======  ==========================================
 module             route    replaces
 =================  =======  ==========================================
-rmsnorm            Triton   repro/kernels/rmsnorm.py::rmsnorm_kernel
+rmsnorm            CUDA     repro/kernels/rmsnorm.py::rmsnorm_kernel
 flash_attention    CUDA     repro/kernels/flash_attention.py::
                             flash_attention_bhsd
 decode_attention   CUDA     repro/kernels/decode_attention.py::
@@ -33,10 +33,15 @@ WRAPPERS = {"rmsnorm": _rms, "flash_attention": _fa,
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    _rms.fused_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """Each wrapper's launches, and ``rmsnorm_fused``: the RMSNorm launches
+    that took the residual add in (counted in ``rmsnorm`` too)."""
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts["rmsnorm_fused"] = _rms.fused_launches
+    return counts
 
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts"]

@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attention", "decode_attention", "ssd_scan",
+SOURCES = ("rmsnorm", "flash_attention", "decode_attention", "ssd_scan",
            "rglru_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -35,9 +35,9 @@ _LOCK = threading.Lock()
 def use_kernel(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); any other device raises."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
-    if t.device.type == "cpu":
+    if t.is_cpu:
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
@@ -133,13 +133,14 @@ def load(name: str) -> ctypes.CDLL:
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PTXAS_PROPS = re.compile(r"Function properties for (\w+)")
-_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
 def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
-    """Registers and spill bytes of each kernel (by mangled name) of
-    ``csrc/<name>.cu``, from ptxas's report of its build."""
+    """Registers, stack-frame and spill bytes of each kernel (by mangled
+    name) of ``csrc/<name>.cu``, from ptxas's report of its build."""
     log = _lib_path(name).with_suffix(".log")
     usage: Dict[str, Dict[str, int]] = {}
     kernel = props = None
@@ -150,8 +151,9 @@ def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
         elif m := _PTXAS_PROPS.search(line):
             props = m.group(1)
         elif props in usage and (m := _PTXAS_SPILL.search(line)):
-            usage[props].update(spill_stores=int(m.group(1)),
-                                spill_loads=int(m.group(2)))
+            usage[props].update(stack=int(m.group(1)),
+                                spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
         elif kernel and (m := _PTXAS_REGS.search(line)):
             usage[kernel]["registers"] = int(m.group(1))
     return usage
@@ -165,4 +167,6 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's card, as the launch takes it (the raw
+    handle PyTorch's own launchers read: no Stream object is made)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -11,6 +11,7 @@ from __future__ import annotations
 from repro_torch.kernels.decode_attention import decode_attention as _dec
 from repro_torch.kernels.flash_attention import flash_attention as _fa
 from repro_torch.kernels.rglru import rglru_scan as _rglru
+from repro_torch.kernels.rmsnorm import add_rmsnorm as _add_rms
 from repro_torch.kernels.rmsnorm import rmsnorm as _rms
 from repro_torch.kernels.ssd import ssd_scan as _ssd
 
@@ -27,6 +28,11 @@ def decode_attention(q, k_cache, v_cache, valid):
 
 def rmsnorm(x, weight, *, eps: float = 1e-6):
     return _rms(x, weight, eps=eps)
+
+
+def add_rmsnorm(x, r, weight, *, eps: float = 1e-6):
+    """(s, rmsnorm(s)) with s = x + r, in one launch on the card."""
+    return _add_rms(x, r, weight, eps=eps)
 
 
 def rglru_scan(x, log_a, h0):

@@ -64,6 +64,13 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
+def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, weight: torch.Tensor,
+                *, eps: float = 1e-6):
+    """The residual add and the norm after it: (s, rmsnorm(s)), s = x + r."""
+    s = x + r
+    return s, rmsnorm(s, weight, eps=eps)
+
+
 def rglru_scan(x: torch.Tensor, log_a: torch.Tensor,
                h0: torch.Tensor):
     """h_t = a_t h_{t-1} + sqrt(1-a_t^2) x_t with a = exp(log_a), walked

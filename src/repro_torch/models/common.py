@@ -219,6 +219,20 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     return rmsnorm_plain(x, weight, eps=eps)
 
 
+def add_rms_norm(x: torch.Tensor, r: torch.Tensor, weight: torch.Tensor,
+                 eps: float = 1e-6, use_pallas: bool = False):
+    """The residual add and the norm after it, (x + r, rms_norm(x + r)):
+    one kernel launch with ``use_pallas``, the plain add and norm without.
+    ``r`` None is the norm alone, (x, rms_norm(x))."""
+    if r is None:
+        return x, rms_norm(x, weight, eps, use_pallas)
+    if use_pallas:
+        from repro_torch.kernels import ops as kops
+        return kops.add_rmsnorm(x, r, weight, eps=eps)
+    from repro_torch.kernels.ref import add_rmsnorm as add_rmsnorm_plain
+    return add_rmsnorm_plain(x, r, weight, eps=eps)
+
+
 def ffn_act(x_gate, x_up, kind: str):
     """Combine gate/up projections per the configured activation."""
     if kind == "swiglu":

@@ -16,6 +16,9 @@ of layer dicts. The cache is ``{"units": [{"l0": RGLRUState, "l1":
 RGLRUState, "l2": KVCache}, ...], "tail": [RGLRUState, ...]}``;
 ``decode_step`` writes each KV cache in place and returns new recurrent
 states.
+
+A layer's last residual add is left to the next layer's first norm, or the
+final norm, which takes it in (``add_rms_norm``), as in the dense model.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
-from repro_torch.models.common import ModelConfig, dense_init, rms_norm
+from repro_torch.models.common import ModelConfig, add_rms_norm, dense_init
 
 
 class HybridLM:
@@ -69,55 +72,60 @@ class HybridLM:
         return params
 
     # ------------------------------------------------------------------
-    def _layer_full(self, lp, kind, x, positions):
+    def _layer_full(self, lp, kind, x, pending, positions):
+        """(x, pending) in and out: the layer's input is x + pending."""
         cfg = self.cfg
-        h = rms_norm(x, lp["temporal_norm"], cfg.norm_eps, cfg.use_pallas)
+        x, h = add_rms_norm(x, pending, lp["temporal_norm"], cfg.norm_eps,
+                            cfg.use_pallas)
         if kind == "attn":
             y, cache = attn.attention_forward(
                 lp["mixer"], cfg, h, positions, window=cfg.local_window)
         else:
             y, cache = blocks.rglru_block_forward(lp["mixer"], cfg, h)
-        x = x + y
-        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps, cfg.use_pallas)
-        return x + blocks.ffn_forward(lp["mlp"], cfg, h), cache
+        x, h = add_rms_norm(x, y, lp["mlp_norm"], cfg.norm_eps,
+                            cfg.use_pallas)
+        return x, blocks.ffn_forward(lp["mlp"], cfg, h), cache
 
-    def _layer_decode(self, lp, kind, x, cache, pos):
+    def _layer_decode(self, lp, kind, x, pending, cache, pos):
         cfg = self.cfg
-        h = rms_norm(x, lp["temporal_norm"], cfg.norm_eps, cfg.use_pallas)
+        x, h = add_rms_norm(x, pending, lp["temporal_norm"], cfg.norm_eps,
+                            cfg.use_pallas)
         if kind == "attn":
             y, nc = attn.attention_decode(lp["mixer"], cfg, h, cache, pos,
                                           window=cfg.local_window)
         else:
             y, nc = blocks.rglru_block_forward(lp["mixer"], cfg, h,
                                                state=cache)
-        x = x + y
-        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps, cfg.use_pallas)
-        return x + blocks.ffn_forward(lp["mlp"], cfg, h), nc
+        x, h = add_rms_norm(x, y, lp["mlp_norm"], cfg.norm_eps,
+                            cfg.use_pallas)
+        return x, blocks.ffn_forward(lp["mlp"], cfg, h), nc
 
     # ------------------------------------------------------------------
     def _embed(self, params, tokens):
         return params["embed"][tokens].to(self.cfg.activation_dtype)
 
-    def _unembed(self, params, x):
+    def _unembed(self, params, x, pending):
         cfg = self.cfg
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.use_pallas)
+        _, x = add_rms_norm(x, pending, params["final_norm"], cfg.norm_eps,
+                            cfg.use_pallas)
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
         return x @ head.to(x.dtype)
 
     def _run(self, params, x, positions):
-        unit_caches = []
+        unit_caches, pending = [], None
         for up in params["units"]:
             caches = {}
             for i, kind in enumerate(self.pattern):
-                x, caches[f"l{i}"] = self._layer_full(up[f"l{i}"], kind, x,
-                                                      positions)
+                x, pending, caches[f"l{i}"] = self._layer_full(
+                    up[f"l{i}"], kind, x, pending, positions)
             unit_caches.append(caches)
         tail_caches = []
         for lp in params["tail"]:
-            x, c = self._layer_full(lp, "rec", x, positions)
+            x, pending, c = self._layer_full(lp, "rec", x, pending,
+                                             positions)
             tail_caches.append(c)
-        return x, {"units": unit_caches, "tail": tail_caches}
+        return x, pending, {"units": unit_caches, "tail": tail_caches}
 
     def forward(self, params, tokens,
                 positions: Optional[torch.Tensor] = None):
@@ -126,16 +134,16 @@ class HybridLM:
             positions = torch.arange(S, device=tokens.device)[None].expand(
                 B, S)
         x = self._embed(params, tokens)
-        x, _ = self._run(params, x, positions)
+        x, pending, _ = self._run(params, x, positions)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._unembed(params, x), aux
+        return self._unembed(params, x, pending), aux
 
     def prefill(self, params, tokens, max_len=None):
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         x = self._embed(params, tokens)
-        x, caches = self._run(params, x, positions)
-        return self._unembed(params, x[:, -1:]), caches
+        x, pending, caches = self._run(params, x, positions)
+        return self._unembed(params, x[:, -1:], pending[:, -1:]), caches
 
     def init_cache(self, batch: int, max_len: int, device="cuda"):
         """Zero states, and ring KV caches of ``local_window`` slots."""
@@ -157,16 +165,17 @@ class HybridLM:
         """token: (B,1) int; pos: (B,) tokens already in cache. Writes the
         KV caches in place; returns the logits and the new cache."""
         x = self._embed(params, token)
-        new_units = []
+        new_units, pending = [], None
         for up, uc in zip(params["units"], cache["units"]):
             ncs = {}
             for i, kind in enumerate(self.pattern):
-                x, ncs[f"l{i}"] = self._layer_decode(up[f"l{i}"], kind, x,
-                                                     uc[f"l{i}"], pos)
+                x, pending, ncs[f"l{i}"] = self._layer_decode(
+                    up[f"l{i}"], kind, x, pending, uc[f"l{i}"], pos)
             new_units.append(ncs)
         new_tail = []
         for lp, c in zip(params["tail"], cache["tail"]):
-            x, nc = self._layer_decode(lp, "rec", x, c, pos)
+            x, pending, nc = self._layer_decode(lp, "rec", x, pending, c,
+                                                pos)
             new_tail.append(nc)
-        return self._unembed(params, x), {"units": new_units,
-                                          "tail": new_tail}
+        return self._unembed(params, x, pending), {"units": new_units,
+                                                   "tail": new_tail}

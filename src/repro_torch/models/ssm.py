@@ -9,6 +9,9 @@ embeddings are tied, and ``layers``, a list of ``{"norm", "mixer"}`` dicts
 an ``SSDState`` of tensors stacked over layers, (L, B, H, P, N) and
 (L, B, k-1, conv_dim), as in the JAX package; ``decode_step`` returns a new
 one.
+
+A layer's residual add is left to the next layer's norm, or the final norm,
+which takes it in (``add_rms_norm``), as in the dense model.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Any
 import torch
 
 from repro_torch.models import blocks
-from repro_torch.models.common import ModelConfig, dense_init, rms_norm
+from repro_torch.models.common import ModelConfig, add_rms_norm, dense_init
 
 
 class MambaLM:
@@ -48,34 +51,35 @@ class MambaLM:
     def _embed(self, params, tokens):
         return params["embed"][tokens].to(self.cfg.activation_dtype)
 
-    def _unembed(self, params, x):
+    def _unembed(self, params, x, pending):
         cfg = self.cfg
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.use_pallas)
+        _, x = add_rms_norm(x, pending, params["final_norm"], cfg.norm_eps,
+                            cfg.use_pallas)
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
         return x @ head.to(x.dtype)
 
     def _run(self, params, x, *, collect_state: bool):
         cfg = self.cfg
-        states = []
+        states, y = [], None
         for lp in params["layers"]:
-            r = rms_norm(x, lp["norm"], cfg.norm_eps, cfg.use_pallas)
+            x, r = add_rms_norm(x, y, lp["norm"], cfg.norm_eps,
+                                cfg.use_pallas)
             y, state = blocks.ssd_block_forward(lp["mixer"], cfg, r)
-            x = x + y
             if collect_state:
                 states.append(state)
-        return x, states
+        return x, y, states
 
     def forward(self, params, tokens, positions=None):
         x = self._embed(params, tokens)
-        x, _ = self._run(params, x, collect_state=False)
+        x, y, _ = self._run(params, x, collect_state=False)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._unembed(params, x), aux
+        return self._unembed(params, x, y), aux
 
     def prefill(self, params, tokens, max_len=None):
         x = self._embed(params, tokens)
-        x, states = self._run(params, x, collect_state=True)
-        return self._unembed(params, x[:, -1:]), _stack(states)
+        x, y, states = self._run(params, x, collect_state=True)
+        return self._unembed(params, x[:, -1:], y[:, -1:]), _stack(states)
 
     def init_cache(self, batch: int, max_len: int, device="cuda"):
         one = blocks.init_ssd_state(self.cfg, batch, device=device)
@@ -88,15 +92,15 @@ class MambaLM:
         position). Returns the logits and a new cache."""
         cfg = self.cfg
         x = self._embed(params, token)
-        states = []
+        states, y = [], None
         for i, lp in enumerate(params["layers"]):
-            r = rms_norm(x, lp["norm"], cfg.norm_eps, cfg.use_pallas)
+            x, r = add_rms_norm(x, y, lp["norm"], cfg.norm_eps,
+                                cfg.use_pallas)
             y, st = blocks.ssd_block_forward(
                 lp["mixer"], cfg, r,
                 state=blocks.SSDState(ssm=cache.ssm[i], conv=cache.conv[i]))
-            x = x + y
             states.append(st)
-        return self._unembed(params, x), _stack(states)
+        return self._unembed(params, x, y), _stack(states)
 
 
 def _stack(states) -> blocks.SSDState:

@@ -16,6 +16,12 @@ per-layer dicts (the JAX tree stacks them on a leading axis; see
 KVCache}`` with (L, B, T, Hkv, D) tensors, and ``decode_step`` updates it in
 place: it writes each layer's new K/V into the cache it was given and
 returns that same cache.
+
+A layer leaves its last residual add to the norm after it: it returns
+``(x, pending)``, its output being ``x + pending``, and the next layer's
+first norm, or the final norm, takes the add in (``add_rms_norm``: one
+kernel launch with ``use_pallas``). The plain path performs the same adds
+and norms in the same order as a layer that sums its own output.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
-from repro_torch.models.common import ModelConfig, dense_init, rms_norm
+from repro_torch.models.common import ModelConfig, add_rms_norm, dense_init
 
 
 class DecoderOnlyLM:
@@ -69,24 +75,27 @@ class DecoderOnlyLM:
     # ------------------------------------------------------------------
     # layer bodies
     # ------------------------------------------------------------------
-    def _layer_full(self, lp, x, positions, cache_len=None):
+    def _layer_full(self, lp, x, pending, positions, cache_len=None):
+        """(x, pending) in and out: the layer's input is x + pending."""
         cfg = self.cfg
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps, cfg.use_pallas)
+        x, h = add_rms_norm(x, pending, lp["attn_norm"], cfg.norm_eps,
+                            cfg.use_pallas)
         a, cache = attn.attention_forward(
             lp["attn"], cfg, h, positions, window=cfg.attention_window,
             cache_len=cache_len)
-        x = x + a
-        h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps, cfg.use_pallas)
-        return x + blocks.ffn_forward(lp["ffn"], cfg, h), cache
+        x, h = add_rms_norm(x, a, lp["ffn_norm"], cfg.norm_eps,
+                            cfg.use_pallas)
+        return x, blocks.ffn_forward(lp["ffn"], cfg, h), cache
 
-    def _layer_decode(self, lp, x, cache, pos):
+    def _layer_decode(self, lp, x, pending, cache, pos):
         cfg = self.cfg
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps, cfg.use_pallas)
+        x, h = add_rms_norm(x, pending, lp["attn_norm"], cfg.norm_eps,
+                            cfg.use_pallas)
         a, cache = attn.attention_decode(
             lp["attn"], cfg, h, cache, pos, window=cfg.attention_window)
-        x = x + a
-        h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps, cfg.use_pallas)
-        return x + blocks.ffn_forward(lp["ffn"], cfg, h), cache
+        x, h = add_rms_norm(x, a, lp["ffn_norm"], cfg.norm_eps,
+                            cfg.use_pallas)
+        return x, blocks.ffn_forward(lp["ffn"], cfg, h), cache
 
     # ------------------------------------------------------------------
     # public api
@@ -94,21 +103,23 @@ class DecoderOnlyLM:
     def _embed(self, params, tokens):
         return params["embed"][tokens].to(self.cfg.activation_dtype)
 
-    def _unembed(self, params, x):
+    def _unembed(self, params, x, pending):
         cfg = self.cfg
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.use_pallas)
+        _, x = add_rms_norm(x, pending, params["final_norm"], cfg.norm_eps,
+                            cfg.use_pallas)
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
         return x @ head.to(x.dtype)
 
     def _run_stack(self, params, x, positions, *, collect_cache: bool,
                    cache_len=None):
-        caches = []
+        caches, pending = [], None
         for lp in params["layers"]:
-            x, c = self._layer_full(lp, x, positions, cache_len=cache_len)
+            x, pending, c = self._layer_full(lp, x, pending, positions,
+                                             cache_len=cache_len)
             if collect_cache:
                 caches.append(c)
-        return x, caches
+        return x, pending, caches
 
     def forward(self, params, tokens,
                 positions: Optional[torch.Tensor] = None):
@@ -117,17 +128,18 @@ class DecoderOnlyLM:
             positions = torch.arange(S, device=tokens.device)[None].expand(
                 B, S)
         x = self._embed(params, tokens)
-        x, _ = self._run_stack(params, x, positions, collect_cache=False)
+        x, pending, _ = self._run_stack(params, x, positions,
+                                        collect_cache=False)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._unembed(params, x), aux
+        return self._unembed(params, x, pending), aux
 
     def prefill(self, params, tokens, max_len=None):
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         x = self._embed(params, tokens)
-        x, caches = self._run_stack(params, x, positions, collect_cache=True,
-                                    cache_len=max_len)
-        logits = self._unembed(params, x[:, -1:])
+        x, pending, caches = self._run_stack(
+            params, x, positions, collect_cache=True, cache_len=max_len)
+        logits = self._unembed(params, x[:, -1:], pending[:, -1:])
         stacked = attn.KVCache(k=torch.stack([c.k for c in caches]),
                                v=torch.stack([c.v for c in caches]))
         return logits, {"prefix": [], "scanned": stacked}
@@ -145,9 +157,10 @@ class DecoderOnlyLM:
         """token: (B,1) int; pos: (B,) tokens already in cache. Writes the
         new K/V into ``cache`` in place and returns it."""
         x = self._embed(params, token)
-        stacked = cache["scanned"]
+        stacked, pending = cache["scanned"], None
         for i, lp in enumerate(params["layers"]):
-            x, _ = self._layer_decode(
-                lp, x, attn.KVCache(k=stacked.k[i], v=stacked.v[i]), pos)
-        logits = self._unembed(params, x)
+            x, pending, _ = self._layer_decode(
+                lp, x, pending, attn.KVCache(k=stacked.k[i], v=stacked.v[i]),
+                pos)
+        logits = self._unembed(params, x, pending)
         return logits, cache

@@ -6,7 +6,8 @@ the card. Every test is marked ``cuda`` and skips where
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Inputs come from numpy with a seed. Tolerances: 2e-5 in fp32 and 2e-2 in
-bf16 for the attention kernels and RMSNorm, 2e-4 for the SSD scan and 1e-5
+bf16 for the attention kernels and RMSNorm (the fused residual sum bit for
+bit), 2e-4 for the SSD scan and 1e-5
 for the RG-LRU scan (``tests/test_kernels.py``); 5e-4 for a small fp32
 model through the kernels against the same model through the plain
 versions. A bf16 output must also lie within a relative L2 of 1e-3 of the
@@ -60,6 +61,12 @@ SSD_SHAPES = [(1, 128, 4, 64, 1, 64, 32), (2, 256, 8, 32, 2, 32, 64),
               (1, 64, 2, 64, 1, 128, 16), (1, 1, 64, 64, 1, 128, 1),
               (1, 2, 64, 64, 1, 128, 2), (1, 64, 64, 64, 1, 128, 64),
               (1, 256, 64, 64, 1, 128, 128)]
+# beyond them: batch 8 at the serving shape (one slice of all of P), P 32
+# over two groups, several chunks with two stages, and a P and an N that no
+# tile divides (padded slices and synchronous copies)
+SSD_MORE = [(8, 64, 64, 64, 1, 128, 64), (1, 128, 8, 32, 2, 64, 32),
+            (2, 192, 16, 64, 1, 128, 64), (1, 40, 4, 24, 2, 20, 8),
+            (8, 256, 64, 64, 1, 128, 128), (1, 64, 4, 48, 1, 64, 32)]
 # (B, S, W): the sweep of tests/test_kernels.py, then recurrentgemma-9b's
 RGLRU_SHAPES = [(1, 64, 128), (2, 256, 256), (3, 128, 384), (1, 64, 4096),
                 (1, 256, 4096), (2, 2, 4096)]
@@ -247,7 +254,7 @@ def _ssd_inputs(seed, b, s, h, p, g, n, device):
             for a in (x, dt, A, B, C)]
 
 
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES + SSD_MORE)
 def test_ssd_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk):
     args = _ssd_inputs(6, b, s, h, p, g, n, cuda)
     before = ssd.ssd_scan.launches
@@ -293,6 +300,53 @@ def test_ssd_kernel_reads_strided_inputs(cuda):
                                **SSD_TOL)
 
 
+def test_ssd_kernel_reads_misaligned_inputs(cuda):
+    """x, B and C at an odd offset inside one fused buffer, so that no row
+    is 16-byte aligned: the kernel's synchronous copies, same output."""
+    b, s, h, p, g, n = 1, 64, 8, 32, 2, 32
+    x, dt, A, B, C = _ssd_inputs(9, b, s, h, p, g, n, cuda)
+    fused = torch.cat([torch.zeros(b, s, 1, device=cuda),
+                       x.reshape(b, s, h * p), B.reshape(b, s, g * n),
+                       C.reshape(b, s, g * n)], dim=-1)
+    _, xs, Bs, Cs = torch.split(fused, [1, h * p, g * n, g * n], dim=-1)
+    y, st = ssd.ssd_scan(xs.reshape(b, s, h, p), dt, A,
+                         Bs.reshape(b, s, g, n), Cs.reshape(b, s, g, n),
+                         chunk=32)
+    y_r, st_r = ssd.ssd_scan_plain(x, dt, A, B, C)
+    np.testing.assert_allclose(y.cpu().numpy(), y_r.cpu().numpy(),
+                               **SSD_TOL)
+    np.testing.assert_allclose(st.cpu().numpy(), st_r.cpu().numpy(),
+                               **SSD_TOL)
+
+
+@pytest.mark.parametrize("chunk,n,ps,stages", [(64, 128, 16, 1),
+                                               (128, 128, 16, 1),
+                                               (64, 128, 64, 2),
+                                               (1, 20, 32, 1)])
+def test_ssd_plan_shared_memory_is_the_kernels(cuda, chunk, n, ps, stages):
+    """The wrapper's count of a block's shared memory is the kernel's."""
+    assert ssd._lib().ssd_scan_smem_bytes(chunk, n, ps, stages) == \
+        ssd.smem_bytes(chunk, n, ps, stages)
+
+
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(1, 64, 64, 64, 1, 128, 64),
+                                               (1, 256, 8, 32, 2, 64, 32)])
+def test_ssd_kernel_smaller_clusters(cuda, monkeypatch, cluster, b, s, h, p,
+                                     g, n, chunk):
+    """Clusters of 1 and 2 blocks (each block builds more of C.B^T, the
+    multicast reaches fewer blocks) give the plain version's output."""
+    plan = ssd.plan
+    monkeypatch.setattr(ssd, "plan", lambda *a: plan(*a)[:2] + (cluster,))
+    args = _ssd_inputs(11, b, s, h, p, g, n, cuda)
+    y, st = ssd.ssd_scan(*args, chunk=chunk)
+    y_r, st_r = ssd.ssd_scan_plain(*args)
+    np.testing.assert_allclose(y.cpu().numpy(), y_r.cpu().numpy(),
+                               **SSD_TOL)
+    np.testing.assert_allclose(st.cpu().numpy(), st_r.cpu().numpy(),
+                               **SSD_TOL)
+
+
 @pytest.mark.parametrize("B,S,W", RGLRU_SHAPES)
 def test_rglru_kernel_matches_plain(cuda, B, S, W):
     rng = np.random.default_rng(5)
@@ -317,7 +371,53 @@ def test_rglru_kernel_matches_plain(cuda, B, S, W):
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     x, w = _normal(8, shape, (shape[-1],))
     x, w = _dev(x, dtype, cuda), _dev(1.0 + 0.1 * w, dtype, cuda)
+    n, nf = rms.rmsnorm.launches, rms.rmsnorm.fused_launches
     _close(rms.rmsnorm(x, w), rms.rmsnorm_plain(x, w), dtype)
+    assert (rms.rmsnorm.launches, rms.rmsnorm.fused_launches) == (n + 1, nf)
+
+
+def _add_rmsnorm_case(x, r, w, dtype):
+    """The fused kernel: s is x + r bit for bit, y the plain norm of it."""
+    n, nf = rms.rmsnorm.launches, rms.rmsnorm.fused_launches
+    s, y = rms.add_rmsnorm(x, r, w)
+    assert (rms.rmsnorm.launches, rms.rmsnorm.fused_launches) == \
+        (n + 1, nf + 1)
+    assert s.dtype == y.dtype == x.dtype and s.shape == x.shape
+    assert torch.equal(s, x + r)
+    s_r, y_r = rms.add_rmsnorm_plain(x, r, w)
+    assert torch.equal(s, s_r)
+    _close(y, y_r, dtype)
+
+
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_add_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    x, r, w = _normal(16, shape, shape, (shape[-1],))
+    _add_rmsnorm_case(_dev(x, dtype, cuda), _dev(r, dtype, cuda),
+                      _dev(1.0 + 0.1 * w, dtype, cuda), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_scalar_and_wide_rows(cuda, dtype):
+    """The scalar path (a row view that is not 16-byte aligned, and D = 500,
+    a multiple of no bf16 vector), rows wider than a thread keeps in
+    registers, and a weight of the other dtype (an fp32 model keeps bf16
+    weights)."""
+    big, r, w = _normal(17, (6, 3073), (6, 3072), (3072,))
+    x = _dev(big, dtype, cuda)[:, 1:]
+    assert x.data_ptr() % 16 and x.stride(0) == 3073
+    r, w = _dev(r, dtype, cuda), _dev(1.0 + 0.1 * w, dtype, cuda)
+    _close(rms.rmsnorm(x, w), rms.rmsnorm_plain(x, w), dtype)
+    _add_rmsnorm_case(x, r, w, dtype)
+    other = "float32" if dtype == "bfloat16" else "bfloat16"
+    _close(rms.rmsnorm(x, w.to(getattr(torch, other))),
+           rms.rmsnorm_plain(x, w.to(getattr(torch, other))), dtype)
+    for D in (500, 40000):
+        x, r, w = _normal(18, (3, D), (3, D), (D,))
+        x, r = _dev(x, dtype, cuda), _dev(r, dtype, cuda)
+        w = _dev(1.0 + 0.1 * w, dtype, cuda)
+        _close(rms.rmsnorm(x, w), rms.rmsnorm_plain(x, w), dtype)
+        _add_rmsnorm_case(x, r, w, dtype)
 
 
 def test_kernel_model_matches_plain(cuda):
@@ -336,14 +436,18 @@ def test_kernel_model_matches_plain(cuda):
     assert after["flash_attention"] - before["flash_attention"] == \
         cfg.num_layers
     assert after["rmsnorm"] - before["rmsnorm"] == 2 * cfg.num_layers + 1
+    assert after["rmsnorm_fused"] - before["rmsnorm_fused"] == \
+        2 * cfg.num_layers
     np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(),
                                rtol=5e-4, atol=5e-4)
 
 
 @pytest.mark.parametrize("arch,counts", [
-    ("mamba2-1.3b", lambda L: {"ssd_scan": L, "rmsnorm": L + 1}),
+    ("mamba2-1.3b", lambda L: {"ssd_scan": L, "rmsnorm": L + 1,
+                               "rmsnorm_fused": L}),
     ("recurrentgemma-9b", lambda L: {"rglru_scan": 2 * (L // 3) + L % 3,
-                                     "rmsnorm": 2 * L + 1}),
+                                     "rmsnorm": 2 * L + 1,
+                                     "rmsnorm_fused": 2 * L}),
 ])
 def test_kernel_state_models_match_plain(cuda, arch, counts):
     """Reduced Mamba-2 and RecurrentGemma (5 layers: a unit and a tail) in

@@ -171,6 +171,66 @@ def test_prefill_decode_matches_forward(num_layers, use_pallas):
     _close(dl[:, 0].numpy(), full[:, S].numpy(), rtol=1e-3, atol=1e-3)
 
 
+def _unfused_run(tm, params, toks, cache=None, pos=None):
+    """The hybrid stack with each layer summing its own output, x +
+    pending, and each norm taking a summed x (the layers called with no
+    pending add): forward logits, or one decode step's (logits, cache), or
+    with neither the prefill's."""
+    B, S = toks.shape
+    positions = torch.arange(S)[None].expand(B, S)
+    x = tm._embed(params, toks)
+    layers = [(up[f"l{i}"], kind, f"l{i}", u)
+              for u, up in enumerate(params["units"])
+              for i, kind in enumerate(tm.pattern)]
+    layers += [(lp, "rec", None, t) for t, lp in enumerate(params["tail"])]
+    new = {"units": [{} for _ in params["units"]], "tail": []}
+    for lp, kind, key, idx in layers:
+        if cache is None:
+            x, pending, c = tm._layer_full(lp, kind, x, None, positions)
+        else:
+            old = cache["units"][idx][key] if key else cache["tail"][idx]
+            x, pending, c = tm._layer_decode(lp, kind, x, None, old, pos)
+        if key:
+            new["units"][idx][key] = c
+        else:
+            new["tail"].append(c)
+        x = x + pending
+    return tm._unembed(params, x, None), new
+
+
+def _tree_equal(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_tree_equal, a, b))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("num_layers", LAYERS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_residual_norms_match_explicit_adds(num_layers, dtype):
+    """Handing each layer's last residual add to the next norm (and the
+    final norm) changes no bit on the plain path: forward logits, and a
+    decode step's logits and caches, equal those of layers that sum their
+    own outputs."""
+    _, _, _, tparams, cfg = _models(num_layers)
+    tm = build_model(cfg.replace(dtype=dtype))
+    B, S = 2, 12
+    toks = torch.from_numpy(_tokens(cfg, (B, S + 1)))
+    fwd, _ = tm.forward(tparams, toks)
+    assert torch.equal(fwd, _unfused_run(tm, tparams, toks)[0])
+    _, cache = tm.prefill(tparams, toks[:, :S])
+    _, ref_cache = _unfused_run(tm, tparams, toks[:, :S])
+    assert _tree_equal(cache, ref_cache)
+    pos = torch.full((B,), S, dtype=torch.long)
+    dl, new = tm.decode_step(tparams, toks[:, S:], cache, pos)
+    dl_ref, new_ref = _unfused_run(tm, tparams, toks[:, S:],
+                                   cache=ref_cache, pos=pos)
+    assert torch.equal(dl, dl_ref)
+    assert _tree_equal(new, new_ref)
+
+
 @pytest.mark.parametrize("num_layers", LAYERS)
 def test_decode_steps_match_jax(num_layers):
     """Four decode steps from a zero cache; the row at position 30 wraps

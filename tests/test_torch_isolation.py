@@ -69,8 +69,8 @@ def test_cuda_sources_include_only_cuda_headers():
     allowed = re.compile(r'#include\s+(<cuda[\w_]*\.h>|<stdint\.h>'
                          r'|"common\.cuh")')
     names = sorted(f for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
-    assert {"ssd_scan.cu", "rglru_scan.cu", "decode_attention.cu",
-            "flash_attention.cu"} <= set(names)
+    assert {"rmsnorm.cu", "ssd_scan.cu", "rglru_scan.cu",
+            "decode_attention.cu", "flash_attention.cu"} <= set(names)
     bad = []
     for f in names:
         with open(os.path.join(csrc, f)) as fh:

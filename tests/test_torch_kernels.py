@@ -16,8 +16,10 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.ssd import ssd_scan_kernel
 from repro_torch.kernels import launch_counts, ops, reset_launch_counts
 from repro_torch.kernels import rmsnorm as rms
+from repro_torch.kernels import ssd
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -142,11 +144,32 @@ def test_rmsnorm_matches_jax(shape, dtype):
     _close(got, jops.rmsnorm(_jax(x, dtype), _jax(w, dtype)), dtype)
 
 
+@pytest.mark.parametrize("shape", RMS_SHAPES + [(64, 3072)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_add_rmsnorm_matches_jax(shape, dtype):
+    """The residual add taken into the norm: s equals JAX's ``x + r`` bit
+    for bit (both round the fp32 sum once to the dtype), and y is the Pallas
+    kernel's norm of it (interpret mode) within the kernel tolerance."""
+    x, r, w = _normal(9, shape, shape, (shape[-1],))
+    w = 1.0 + 0.1 * w
+    s, y = ops.add_rmsnorm(_torch(x, dtype), _torch(r, dtype),
+                           _torch(w, dtype))
+    js = _jax(x, dtype) + _jax(r, dtype)
+    np.testing.assert_array_equal(_np(s), np.asarray(js, np.float32))
+    assert s.dtype == y.dtype == getattr(torch, dtype)
+    _close(_np(y), jops.rmsnorm(js, _jax(w, dtype)), dtype)
+    _close(_np(y), jref.rmsnorm(js, _jax(w, dtype)), dtype)
+
+
 def test_cpu_tensors_run_the_plain_versions_uncounted():
     reset_launch_counts()
     x = torch.randn(3, 64)
     torch.testing.assert_close(ops.rmsnorm(x, torch.ones(64)),
                                rms.rmsnorm_plain(x, torch.ones(64)),
+                               rtol=0, atol=0)
+    s, y = ops.add_rmsnorm(x, x, torch.ones(64))
+    torch.testing.assert_close(s, x + x, rtol=0, atol=0)
+    torch.testing.assert_close(y, rms.rmsnorm_plain(x + x, torch.ones(64)),
                                rtol=0, atol=0)
     q = torch.randn(1, 8, 2, 64)
     ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
@@ -155,9 +178,9 @@ def test_cpu_tensors_run_the_plain_versions_uncounted():
                  chunk=8)
     x = torch.randn(2, 8, 64)
     ops.rglru_scan(x, -torch.rand(2, 8, 64), x[:, 0])
-    assert launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
-                               "decode_attention": 0, "ssd_scan": 0,
-                               "rglru_scan": 0}
+    assert launch_counts() == {"rmsnorm": 0, "rmsnorm_fused": 0,
+                               "flash_attention": 0, "decode_attention": 0,
+                               "ssd_scan": 0, "rglru_scan": 0}
 
 
 def test_other_devices_raise():
@@ -176,6 +199,30 @@ def test_other_devices_raise():
                      q[:, :, :1], q[:, :, :1], chunk=4)
     with pytest.raises(ValueError):
         ops.rglru_scan(q[0], q[0], q[0, 0])
+
+
+@pytest.mark.parametrize("b,s,chunk,blocks,stages", [
+    (1, 64, 64, 128, 1),       # the 64-token bucket: 2 slices of 32
+    (1, 256, 128, 256, 1),     # chunk 128: only slices of 16 fit
+    (8, 64, 64, 512, 1),       # batch 8: one slice of all of P
+    (1, 128, 32, 128, 2)])     # several chunks, two stages fit one wave
+def test_ssd_plan_fills_the_card(b, s, chunk, blocks, stages):
+    """At mamba2-1.3b's heads (64 of P 64, N 128, one group) on 132 SMs:
+    at least 128 blocks at batch 1, clusters of 8 blocks sharing C.B^T, and
+    a block's shared memory within the card's."""
+    ps, st, cluster = ssd.plan(b, s, 64, 64, 1, 128, chunk, 132)
+    assert b * 64 * -(-64 // ps) == blocks and ps % 16 == 0
+    assert (st, cluster) == (stages, 8)
+    assert ssd.smem_bytes(chunk, 128, ps, st) <= ssd.SMEM_BLOCK
+
+
+@pytest.mark.parametrize("p", [8, 24, 48, 64, 96, 128])
+def test_ssd_plan_slices_are_powers_of_two(p):
+    """The kernel indexes a slice with shifts: every P gets a power-of-two
+    slice of at least 16 (a P that none divides is padded with zeros)."""
+    for b, h in ((1, 64), (8, 64), (1, 4)):
+        ps = ssd.plan(b, 64, h, p, 1, 128, 64, 132)[0]
+        assert ps >= 16 and ps & (ps - 1) == 0
 
 
 def test_kernel_builds_go_into_the_checkout(monkeypatch, tmp_path):
@@ -279,3 +326,83 @@ def test_mma_rounding_shortcuts_miss_the_check(kind, B, T, H, Hkv, D):
     for shortcut in (dict(prescale_q=True), dict(split_p=False)):
         got = _mma_attention(*args, **shortcut).float().numpy()
         assert _rel_l2(got, want) > 1e-3, shortcut
+
+
+# ---------------------------------------------------------------------------
+# the SSD kernel's 3xTF32 products (CPU emulation) against the Pallas kernel
+# ---------------------------------------------------------------------------
+
+def _tf32(t, rounded=True):
+    """fp32 to TF32, the low 13 mantissa bits cleared: rounded to nearest
+    with ties away from zero (as ``cvt.rna.tf32.f32`` rounds), or
+    truncated."""
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0x1000 if rounded else i) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b on TF32 tensor cores with fp32 sums: one pass (hi . hi), or
+    the kernel's three (hi . hi + (hi . lo + lo . hi), hi rounded, lo the
+    remainder of each operand truncated to TF32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah, rounded=False), _tf32(b - bh, rounded=False)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def _ssd_tf32(x, dt, A, B, C, chunk, passes):
+    """The arithmetic of ``csrc/ssd_scan.cu``: seg summed in fp64, the four
+    products C.B^T, att.x, C.S_prev^T and (x * w)^T.B through
+    ``_mm_tf32``, everything else in fp32. Shapes as ``ssd_scan``."""
+    b, s, h, p = x.shape
+    rep = h // B.shape[2]
+    state = torch.zeros(b, h, p, B.shape[3])
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    ys = []
+    for t0 in range(0, s, chunk):
+        def heads(t):
+            return t[:, t0:t0 + chunk].transpose(1, 2)
+        xc = heads(x)
+        Bc = heads(B).repeat_interleave(rep, 1)
+        Cc = heads(C).repeat_interleave(rep, 1)
+        dtc = dt[:, t0:t0 + chunk].transpose(1, 2)
+        seg = torch.cumsum((dtc * A[None, :, None]).double(), -1)
+        decay = torch.exp(-(seg[..., :, None] - seg[..., None, :]).float())
+        cb = _mm_tf32(Cc, Bc.transpose(-1, -2), passes)
+        att = torch.where(causal, cb * decay * dtc[..., None, :], 0.0)
+        y = _mm_tf32(att, xc, passes)
+        if t0:
+            y = y + torch.exp(-seg.float())[..., None] * _mm_tf32(
+                Cc, state.transpose(-1, -2), passes)
+        ys.append(y.transpose(1, 2))
+        last = seg[..., -1:]
+        w = torch.exp(-(last - seg).float()) * dtc
+        state = torch.exp(-last.float())[..., None] * state + _mm_tf32(
+            (xc * w[..., None]).transpose(-1, -2), Bc, passes)
+    return torch.cat(ys, 1), state
+
+
+@pytest.mark.parametrize("s,chunk", [(128, 64), (256, 128)])
+def test_ssd_3xtf32_matches_pallas(s, chunk):
+    """At mamba2-1.3b's shape and decay rates (A = linspace(1, 16) over 64
+    heads of P 64, N 128, one group), the 3xTF32 products lie within the
+    SSD tolerance of 2e-4 of the Pallas kernel (interpret mode); one-pass
+    TF32 misses it, which is why the kernel splits every operand."""
+    b, h, p, g, n = 1, 64, 64, 1, 128
+    rng = np.random.default_rng(20)
+    f = np.float32
+    x = rng.standard_normal((b, s, h, p)).astype(f)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(f)
+    A = np.linspace(1.0, 16.0, h).astype(f)
+    B = (0.5 * rng.standard_normal((b, s, g, n))).astype(f)
+    C = (0.5 * rng.standard_normal((b, s, g, n))).astype(f)
+    want = ssd_scan_kernel(*(jnp.asarray(a) for a in (x, dt, A, B, C)),
+                           chunk=chunk, interpret=True)
+    args = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    for got, ref in zip(_ssd_tf32(*args, chunk, passes=3), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   rtol=2e-4, atol=2e-4)
+    y1 = _ssd_tf32(*args, chunk, passes=1)[0].numpy()
+    y_ref = np.asarray(want[0])
+    assert not np.allclose(y1, y_ref, rtol=2e-4, atol=2e-4)

@@ -21,6 +21,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
 from repro.models.attention import init_kv_cache as jax_init_kv_cache
 from repro_torch.configs import get_config
+from repro_torch.models import attention as attn
 from repro_torch.models import build_model
 from repro_torch.models.attention import init_kv_cache
 from repro_torch.models.convert import from_jax_params
@@ -85,6 +86,60 @@ def test_prefill_decode_matches_forward(name):
     np.testing.assert_allclose(dl[:, 0].numpy(), full[:, S].numpy(),
                                rtol=1e-3, atol=1e-3)
     assert new_cache is cache          # the cache is updated in place
+
+
+def _unfused_run(tm, params, toks, cache=None, pos=None, max_len=None):
+    """The model with every layer summing its own output, x + pending, and
+    each norm taking a summed x (the layers called with no pending add):
+    forward logits, or with ``max_len`` the prefill's (logits, cache), or
+    with ``cache`` one decode step's."""
+    B, S = toks.shape
+    x = tm._embed(params, toks)
+    caches = []
+    for i, lp in enumerate(params["layers"]):
+        if cache is not None:
+            st = cache["scanned"]
+            x, pending, _ = tm._layer_decode(
+                lp, x, None, attn.KVCache(k=st.k[i], v=st.v[i]), pos)
+        else:
+            positions = torch.arange(S)[None].expand(B, S)
+            x, pending, c = tm._layer_full(lp, x, None, positions,
+                                           cache_len=max_len)
+            caches.append(c)
+        x = x + pending
+    if max_len is None:
+        return tm._unembed(params, x, None)
+    return tm._unembed(params, x[:, -1:], None), attn.KVCache(
+        k=torch.stack([c.k for c in caches]),
+        v=torch.stack([c.v for c in caches]))
+
+
+@pytest.mark.parametrize("name", ["llama3", "llama3-gqa3", "nemotron"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_residual_norms_match_explicit_adds(name, dtype):
+    """Handing each layer's last residual add to the next norm (and the
+    final norm) changes no bit on the plain path: forward logits, the
+    prefill's logits and cache, and a decode step's logits and cache equal
+    those of the layers summing their own outputs."""
+    _, _, _, tparams, cfg = _models(name)
+    tm = build_model(cfg.replace(dtype=dtype))
+    B, S, CAP = 2, 12, 32
+    toks = torch.from_numpy(_tokens(cfg, (B, S + 1)))
+    fwd, _ = tm.forward(tparams, toks)
+    assert fwd.dtype == getattr(torch, dtype)
+    assert torch.equal(fwd, _unfused_run(tm, tparams, toks))
+    pl, cache = tm.prefill(tparams, toks[:, :S], max_len=CAP)
+    pl_ref, kv_ref = _unfused_run(tm, tparams, toks[:, :S], max_len=CAP)
+    assert torch.equal(pl, pl_ref)
+    assert torch.equal(cache["scanned"].k, kv_ref.k)
+    assert torch.equal(cache["scanned"].v, kv_ref.v)
+    ref_cache = {"prefix": [], "scanned": kv_ref}
+    pos = torch.full((B,), S, dtype=torch.long)
+    dl, cache = tm.decode_step(tparams, toks[:, S:], cache, pos)
+    dl_ref = _unfused_run(tm, tparams, toks[:, S:], cache=ref_cache, pos=pos)
+    assert torch.equal(dl, dl_ref)
+    assert torch.equal(cache["scanned"].k, kv_ref.k)
+    assert torch.equal(cache["scanned"].v, kv_ref.v)
 
 
 @pytest.mark.parametrize("name", sorted(VARIANTS))

@@ -27,6 +27,7 @@ from repro_torch.core import AGFTConfig, AGFTTuner
 from repro_torch.energy import A6000
 from repro_torch.kernels import launch_counts, ops, reset_launch_counts
 from repro_torch.models import blocks, build_model
+from repro_torch.models.common import rms_norm
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving import EngineConfig, InferenceEngine, TorchBackend
 from repro_torch.workloads import PROTOTYPES, generate_requests
@@ -157,6 +158,47 @@ def test_prefill_decode_matches_forward(use_pallas):
     dl, new_cache = tm.decode_step(tparams, toks[:, S:S + 1], cache, pos)
     _close(dl[:, 0].numpy(), full[:, S].numpy(), rtol=1e-3, atol=1e-3)
     assert new_cache.ssm.shape == cache.ssm.shape
+
+
+def _unfused_run(tm, params, toks, cache=None):
+    """The Mamba-2 stack with each layer summing its own output before a
+    plain norm: forward logits, or one decode step's (logits, cache)."""
+    cfg = tm.cfg
+    x = tm._embed(params, toks)
+    states = []
+    for i, lp in enumerate(params["layers"]):
+        r = rms_norm(x, lp["norm"], cfg.norm_eps)
+        state = None if cache is None else blocks.SSDState(
+            ssm=cache.ssm[i], conv=cache.conv[i])
+        y, st = blocks.ssd_block_forward(lp["mixer"], cfg, r, state=state)
+        x = x + y
+        states.append(st)
+    logits = tm._unembed(params, x, None)
+    if cache is None:
+        return logits
+    return logits, blocks.SSDState(ssm=torch.stack([s.ssm for s in states]),
+                                   conv=torch.stack([s.conv for s in states]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_residual_norms_match_explicit_adds(dtype):
+    """Handing each layer's residual add to the next norm (and the final
+    norm) changes no bit on the plain path: forward logits, and a decode
+    step's logits and states, equal those of layers that sum their own
+    outputs."""
+    _, _, _, tparams, cfg = _models()
+    tm = build_model(cfg.replace(dtype=dtype))
+    B, S = 2, 12
+    toks = torch.from_numpy(_tokens(cfg, (B, S + 1)))
+    fwd, _ = tm.forward(tparams, toks)
+    assert torch.equal(fwd, _unfused_run(tm, tparams, toks))
+    _, cache = tm.prefill(tparams, toks[:, :S])
+    pos = torch.full((B,), S, dtype=torch.long)
+    dl, new = tm.decode_step(tparams, toks[:, S:], cache, pos)
+    dl_ref, new_ref = _unfused_run(tm, tparams, toks[:, S:], cache=cache)
+    assert torch.equal(dl, dl_ref)
+    assert torch.equal(new.ssm, new_ref.ssm)
+    assert torch.equal(new.conv, new_ref.conv)
 
 
 def test_decode_steps_match_jax():
