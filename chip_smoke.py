@@ -14,14 +14,15 @@ failure, or when there is no card or no checkout beside it. Phases:
    the card, on the sweep shapes of ``tests/test_kernels.py`` and on the
    serving paths' shapes, at 2e-5 (fp32) and 2e-2 (bf16) elementwise, bf16
    also at BF16_REL_L2 over the whole output, the SSD scan at 2e-4 and the
-   RG-LRU scan at 1e-5; the fused RMSNorm's residual sum must equal
-   ``x + r`` bit for bit. Then each timed with CUDA events beside its plain
-   version and, where one exists, one PyTorch library call, with its time
-   over the library call's (``x_library``) and over its bound
-   (``x_bound``), and its own device time from ``torch.profiler``
-   (``kernel_us``); RMSNorm also by the host's time per call
-   (``host_us``), and the fused RMSNorm beside the add and the norm
-   launched apart (``unfused_ms``).
+   RG-LRU scan at 1e-5 (its fused form's fp32 output and state too); the
+   fused RMSNorm's residual sum must equal ``x + r`` bit for bit. Then each
+   timed with CUDA events beside its plain version and, where one exists,
+   one PyTorch library call, with its time over the library call's
+   (``x_library``) and over its bound (``x_bound``), and its own device
+   time from ``torch.profiler`` (``kernel_us``); RMSNorm also by the host's
+   time per call (``host_us``); the fused RMSNorm beside the add and the
+   norm launched apart, and the fused RG-LRU form beside the scan kernel
+   with its gate ops launched apart (``unfused_ms``).
 3. Models: full-width llama3-3b, mamba2-1.3b and recurrentgemma-9b from a
    seeded generator, one at a time; fp32 logits through the kernels
    against the plain versions (recurrentgemma-9b cut to 5 layers: a unit
@@ -31,7 +32,9 @@ failure, or when there is no card or no checkout beside it. Phases:
    ``normal`` requests for each of the three models, the launch counts set
    to 0 before each and read after it; each kernel of a model's path must
    have run there, as many times as the path says, and as many RMSNorm
-   launches must have taken the residual add in.
+   launches must have taken the residual add in, and as many RG-LRU
+   launches the recurrent block's gates, over a prefill and over a decode
+   step.
 
 The last lines are a JSON object with each kernel's numbers (a row per
 kernel and timed shape; its launches are those of the serve runs whose
@@ -90,6 +93,10 @@ LONG_SSD = (1, 256, 64, 64, 1, 128, 128)   # two chunks of the config's 128
 # (B, S, W): the test_rglru_sweep shapes; recurrentgemma-9b's width
 SWEEP_RGLRU = [(1, 64, 128), (2, 256, 256), (3, 128, 384)]
 MAIN_RGLRU = [(1, 64, 4096), (1, 256, 4096)]
+# the fused RG-LRU form at recurrentgemma-9b's 64-token and 2-token prefill
+# buckets, and at its decode step (max_batch 8, one token)
+MAIN_GATED = [(1, 64, 4096), (1, 2, 4096)]
+STEP_GATED = (8, 1, 4096)
 MODELS = ("llama3-3b", "mamba2-1.3b", "recurrentgemma-9b")
 # recurrentgemma-9b's fp32 kernels-vs-plain check covers one (rec, rec,
 # attn) unit and the two-layer tail, 5 layers; its bf16 check runs all 38
@@ -107,9 +114,14 @@ ROWS = {"rmsnorm": ("rmsnorm", MODELS),
                                       ("recurrentgemma-9b",)),
         "ssd_scan": ("ssd_scan", ("mamba2-1.3b",)),
         "ssd_scan_c128": ("ssd_scan", ()),
-        "rglru_scan": ("rglru_scan", ("recurrentgemma-9b",))}
+        "rglru_scan": ("rglru_scan", ("recurrentgemma-9b",)),
+        "rglru_gated_scan": ("rglru_gated", ("recurrentgemma-9b",)),
+        "rglru_gated_scan_step": ("rglru_gated_step",
+                                  ("recurrentgemma-9b",))}
 # the rmsnorm row counts every launch of the RMSNorm kernel, the
 # add_rmsnorm row those among them that took the residual add in; the
+# rglru_scan row every launch of the RG-LRU kernel, the two rglru_gated
+# rows those of its fused form over a prefill and over a decode step; the
 # serve runs prefill at most 64 tokens, so no serve launch is at the
 # chunk-128 SSD row's shape
 
@@ -342,6 +354,19 @@ def check_kernels(torch, dev):
                main, "rglru")
         record("rglru_scan", f"B{B} S{S} W{W} h_last", "float32", hl, hl_r,
                main, "rglru")
+    # the fused form, fp32 and bf16 activations (the served dtype)
+    for dn, dt in dtypes.items():
+        for (B, S, W) in SWEEP_RGLRU + MAIN_GATED + [STEP_GATED]:
+            args = gated_inputs(torch, gen, B, S, W, dt)
+            out, hl = lru.rglru_gated_scan(*args)
+            out_r, hl_r = lru.rglru_gated_scan_plain(*args)
+            row = ("rglru_gated_scan_step" if (B, S, W) == STEP_GATED
+                   else "rglru_gated_scan")
+            main = (B, S, W) in MAIN_GATED + [STEP_GATED]
+            record(row, f"B{B} S{S} W{W} out", dn, out, out_r, main,
+                   "rglru" if dn == "float32" else None)
+            record(row, f"B{B} S{S} W{W} h_last", "float32", hl, hl_r, main,
+                   "rglru")
     torch.cuda.synchronize()
     if failures:
         fail("kernels disagree with their plain versions: "
@@ -371,6 +396,27 @@ def rglru_inputs(torch, gen, B, S, W):
     log_a = -F.softplus(randn(torch, gen, (B, S, W), torch.float32))
     h0 = randn(torch, gen, (B, W), torch.float32)
     return x, log_a, h0
+
+
+def gated_inputs(torch, gen, B, S, W, dtype):
+    """The fused RG-LRU form's inputs: xc, the gate pre-activations, the y
+    branch (in the activation dtype) and h0 from unit normals, lambda from
+    the block's init, 0.9 + 0.099 U(0, 1)."""
+    xc, pre_i, pre_r = (randn(torch, gen, (B, S, W), torch.float32)
+                        for _ in range(3))
+    lam = 0.9 + 0.099 * torch.rand((W,), generator=gen, device=gen.device)
+    return (xc, pre_i, pre_r, lam, randn(torch, gen, (B, S, W), dtype),
+            randn(torch, gen, (B, W), torch.float32))
+
+
+def gated_unfused(torch, lru, xc, pre_i, pre_r, lam, pre_y, h0):
+    """The fused form's function with its gate ops launched apart around
+    the scan kernel, as the recurrent block ran before it took them in."""
+    F = torch.nn.functional
+    log_a = -8.0 * F.softplus(lam) * torch.sigmoid(pre_r)
+    ys, h_last = lru.rglru_scan(torch.sigmoid(pre_i) * xc, log_a, h0)
+    yb = F.gelu(pre_y.float(), approximate="tanh")
+    return (ys * yb).to(pre_y.dtype), h_last
 
 
 def time_kernels(torch, dev, main_err):
@@ -534,11 +580,39 @@ def time_kernels(torch, dev, main_err):
         name="rglru_scan", route="cuda",
         source="src/repro_torch/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru.py:51",
-        shape=f"x, log_a ({B}, {S}, {W}), fp32",
+        shape=f"x, log_a ({B}, {S}, {W}), fp32; "
+              f"{plan_note(torch, lru, B, S, W)}",
         ms=device_ms(torch, lambda: lru.rglru_scan(*args)),
         plain_ms=device_ms(torch, lambda: lru.rglru_scan_plain(*args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         kernel_us=kernel_us(torch, lambda: lru.rglru_scan(*args))))
+    # the fused form at the 64-token prefill and at the decode step, bf16
+    # activations: reads xc, pre_i, pre_r (fp32), pre_y (bf16), lambda and
+    # h0, writes out (bf16) and h_last; per element the scan's 8 operations
+    # and 18 of the gates (two sigmoids of 3, two products, gelu_tanh of 9,
+    # the output product), each counted as one
+    say("  library call for rglru_gated_scan: none (no single PyTorch call "
+        "computes the recurrent block's gates and recurrence)")
+    for row, (B, S, W) in (("rglru_gated_scan", MAIN_GATED[0]),
+                           ("rglru_gated_scan_step", STEP_GATED)):
+        args = gated_inputs(torch, gen, B, S, W, bf)
+        n = B * S * W
+        b_ms, b_by = bound_ms(4 * 3 * n + 2 * 2 * n + 4 * W + 4 * 2 * B * W,
+                              26.0 * n, "float32")
+        rows.append(dict(
+            name=row, route="cuda",
+            source="src/repro_torch/csrc/rglru_scan.cu",
+            replaces="src/repro/kernels/rglru.py:51",
+            shape=f"xc, pre_i, pre_r ({B}, {S}, {W}) fp32, pre_y bf16, out "
+                  f"bf16; {plan_note(torch, lru, B, S, W)}",
+            ms=device_ms(torch, lambda: lru.rglru_gated_scan(*args)),
+            plain_ms=device_ms(torch,
+                               lambda: lru.rglru_gated_scan_plain(*args)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            unfused_ms=device_ms(torch, lambda: gated_unfused(torch, lru,
+                                                              *args)),
+            kernel_us=kernel_us(torch,
+                                lambda: lru.rglru_gated_scan(*args))))
     for r in rows:
         r["max_abs_err"] = main_err[r["name"]]
         r["x_library"] = (None if r["library_ms"] is None
@@ -552,6 +626,14 @@ def time_kernels(torch, dev, main_err):
             f"ms, library {lib}, bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}; {r['x_bound']:.1f}x){extra}")
     return rows
+
+
+def plan_note(torch, lru, B, S, W) -> str:
+    """The RG-LRU kernel's grid at (B, S, W) on this card."""
+    p = lru.plan(B, S, W,
+                 torch.cuda.get_device_properties(0).multi_processor_count)
+    return (f"{p.blocks(B, W)} blocks of {p.tile_w} lanes x {p.chunks} "
+            f"chunks of {p.chunk}")
 
 
 def report_registers(_build) -> None:
@@ -746,11 +828,13 @@ def path_launches(cfg, backend):
     norm stays plain, as in the JAX package), of which all but the first
     (after the embedding) take the residual add in (``rmsnorm_fused``);
     per forward, flash attention
-    L (dense), the SSD scan L (Mamba-2, at every length) and the RG-LRU
-    scan once per rec layer (hybrid, at lengths of 2 and more: a one-token
-    forward takes the inline step); per decode step, decode attention L
-    (dense) or once per attention layer (hybrid). Kernels absent here must
-    not launch."""
+    L (dense) and the SSD scan L (Mamba-2, at every length); per decode
+    step, decode attention L (dense) or once per attention layer (hybrid);
+    per forward and per decode step, the RG-LRU kernel's fused form once per
+    rec layer (hybrid), counted in ``rglru_scan`` and, by its length, in
+    ``rglru_gated`` (two tokens or more) or ``rglru_gated_step`` (one: a
+    decode step, or a one-token forward). Kernels absent here must not
+    launch."""
     L = cfg.num_layers
     fwd, dec = backend.prefill_steps, backend.decode_steps
     if cfg.arch_type == "ssm":
@@ -763,7 +847,9 @@ def path_launches(cfg, backend):
         units, tail = L // len(pat), L % len(pat)
         rec = units * pat.count("rec") + tail
         multi = sum(n >= 2 for n in backend.prefill_lengths)
-        return {**norms, "rglru_scan": rec * multi,
+        return {**norms, "rglru_scan": rec * (fwd + dec),
+                "rglru_gated": rec * multi,
+                "rglru_gated_step": rec * (fwd - multi + dec),
                 "decode_attention": units * pat.count("attn") * dec}
     return {**norms, "flash_attention": L * fwd, "decode_attention": L * dec}
 

@@ -11,6 +11,7 @@ decode_attention   CUDA     repro/kernels/decode_attention.py::
                             decode_attention_grouped
 ssd                CUDA     repro/kernels/ssd.py::ssd_scan_kernel
 rglru              CUDA     repro/kernels/rglru.py::rglru_scan_kernel
+                            (alone, or with the RG-LRU block's gates)
 =================  =======  ==========================================
 """
 from __future__ import annotations
@@ -34,13 +35,19 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     _rms.fused_launches = 0
+    _rglru.gated_launches = _rglru.step_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    """Each wrapper's launches, and ``rmsnorm_fused``: the RMSNorm launches
-    that took the residual add in (counted in ``rmsnorm`` too)."""
+    """Each wrapper's launches; ``rmsnorm_fused``: the RMSNorm launches that
+    took the residual add in (counted in ``rmsnorm`` too); ``rglru_gated``
+    and ``rglru_gated_step``: the RG-LRU launches that took the recurrent
+    block's gates in, over two or more steps and over one (counted in
+    ``rglru_scan`` too)."""
     counts = {name: fn.launches for name, fn in WRAPPERS.items()}
     counts["rmsnorm_fused"] = _rms.fused_launches
+    counts["rglru_gated"] = _rglru.gated_launches
+    counts["rglru_gated_step"] = _rglru.step_launches
     return counts
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention as _dec
 from repro_torch.kernels.flash_attention import flash_attention as _fa
+from repro_torch.kernels.rglru import rglru_gated_scan as _rglru_gated
 from repro_torch.kernels.rglru import rglru_scan as _rglru
 from repro_torch.kernels.rmsnorm import add_rmsnorm as _add_rms
 from repro_torch.kernels.rmsnorm import rmsnorm as _rms
@@ -38,6 +39,14 @@ def add_rmsnorm(x, r, weight, *, eps: float = 1e-6):
 def rglru_scan(x, log_a, h0):
     """x, log_a (B,S,W); h0 (B,W) -> (ys, h_last), all fp32."""
     return _rglru(x.float(), log_a.float(), h0.float())
+
+
+def rglru_gated_scan(xc, pre_i, pre_r, lam, pre_y, h0):
+    """The RG-LRU block's gates, recurrence and output gate in one launch
+    on the card: xc, pre_i, pre_r (B,S,W); lam (W,); pre_y (B,S,W) in the
+    activation dtype; h0 (B,W) -> (out in pre_y's dtype, h_last fp32)."""
+    return _rglru_gated(xc.float(), pre_i.float(), pre_r.float(),
+                        lam.float(), pre_y, h0.float())
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):

@@ -14,6 +14,7 @@ version compute what the TPU kernel computes: 0.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -84,6 +85,23 @@ def rglru_scan(x: torch.Tensor, log_a: torch.Tensor,
         h = a[:, t] * h + gated[:, t]
         ys.append(h)
     return torch.stack(ys, dim=1), h
+
+
+def rglru_gated_scan(xc: torch.Tensor, pre_i: torch.Tensor,
+                     pre_r: torch.Tensor, lam: torch.Tensor,
+                     pre_y: torch.Tensor, h0: torch.Tensor):
+    """The recurrent block of ``repro.models.blocks.rglru_block_forward``
+    from its three products on, op for op: the input and recurrence gates,
+    log a = -8 softplus(lam) sigmoid(pre_r), the scan of gate_i * xc from
+    h0, and the output gate gelu_tanh(pre_y). xc, pre_i, pre_r (B,S,W) fp32;
+    lam (W,) fp32; pre_y (B,S,W) in the activation dtype; h0 (B,W) fp32 ->
+    (out (B,S,W) in pre_y's dtype, h_last (B,W) fp32)."""
+    gate_i = torch.sigmoid(pre_i)
+    gate_r = torch.sigmoid(pre_r)
+    log_a = -8.0 * F.softplus(lam) * gate_r
+    ys, h_last = rglru_scan(gate_i * xc, log_a, h0)
+    yb = F.gelu(pre_y.float(), approximate="tanh")
+    return (ys * yb).to(pre_y.dtype), h_last
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -3,10 +3,11 @@ RG-LRU recurrent block (Griffin / RecurrentGemma) and the Mamba-2 SSD mixer,
 the counterparts of ``repro.models.blocks``. The MoE blocks are not ported
 yet.
 
-With ``cfg.use_pallas`` the two scans run the hand-written Hopper kernels
-of ``repro_torch.kernels`` (on a CPU tensor, their plain versions). The
-fp32 gate products of the RG-LRU block are full fp32 matrix products:
-PyTorch's default keeps TF32 off for them.
+With ``cfg.use_pallas`` the SSD scan and the RG-LRU block's gates and
+recurrence run the hand-written Hopper kernels of ``repro_torch.kernels``
+(on a CPU tensor, their plain versions). The fp32 gate products of the
+RG-LRU block are full fp32 matrix products: PyTorch's default keeps TF32
+off for them.
 """
 from __future__ import annotations
 
@@ -72,9 +73,6 @@ class RGLRUState(NamedTuple):
     conv: torch.Tensor      # (B, k-1, lru_width) conv tail
 
 
-_LRU_C = 8.0  # Griffin's c constant
-
-
 def init_rglru_block(gen: torch.Generator, cfg: ModelConfig):
     dt = cfg.weight_dtype
     W = cfg.lru_width
@@ -89,12 +87,6 @@ def init_rglru_block(gen: torch.Generator, cfg: ModelConfig):
         "w_rec_gate": dense_init(gen, (W, W), dt, scale=0.02),
         "w_out": dense_init(gen, (W, cfg.d_model), dt),
     }
-
-
-def _lru_log_a(p, gate_r: torch.Tensor) -> torch.Tensor:
-    """log recurrence coefficient: -c * softplus(Lambda) * sigmoid(r)."""
-    softp = F.softplus(p["lambda_param"])                 # (W,)
-    return -_LRU_C * softp * gate_r                        # (..., W)
 
 
 def rglru_scan(x: torch.Tensor, log_a: torch.Tensor, h0: torch.Tensor,
@@ -114,30 +106,29 @@ def rglru_block_forward(p, cfg: ModelConfig, x: torch.Tensor,
                         state: Optional[RGLRUState] = None
                         ) -> Tuple[torch.Tensor, RGLRUState]:
     """Full Griffin recurrent block: in-proj -> conv -> RG-LRU -> gate ->
-    out. x: (B,S,d_model). Works for S==1 (decode) given a state."""
+    out. x: (B,S,d_model). Works for S==1 (decode) given a state. After its
+    three products, the gates, the recurrence (Griffin's c = 8) and the
+    output gate are one call at every S, a decode step's included
+    (``rglru_gated_scan``: one kernel launch with ``use_pallas``). Its
+    one-step scan is the JAX package's inline decode step."""
     B, S, _ = x.shape
     W = cfg.lru_width
     xb = x @ p["w_x"].to(x.dtype)                          # (B,S,W)
-    yb = F.gelu((x @ p["w_y"].to(x.dtype)).float(), approximate="tanh")
+    pre_y = x @ p["w_y"].to(x.dtype)                       # y branch
     tail = state.conv if state is not None else None
     xc, new_tail = _causal_conv(xb, p["conv_w"].to(xb.dtype), tail)
     xc32 = xc.float()
-    gate_i = torch.sigmoid(xc32 @ p["w_input_gate"].float())
-    gate_r = torch.sigmoid(xc32 @ p["w_rec_gate"].float())
-    log_a = _lru_log_a(p, gate_r)                          # (B,S,W)
-    gated_x = gate_i * xc32
+    pre_i = xc32 @ p["w_input_gate"].float()
+    pre_r = xc32 @ p["w_rec_gate"].float()
     h0 = (state.h if state is not None
           else torch.zeros((B, W), dtype=torch.float32, device=x.device))
-    if S == 1:
-        a = torch.exp(log_a[:, 0])
-        h = a * h0 + torch.sqrt(torch.clamp(1 - a * a, 1e-9, 1)) * \
-            gated_x[:, 0]
-        ys = h[:, None]
-        h_last = h
+    if cfg.use_pallas:
+        from repro_torch.kernels import ops as kops
+        gated_scan = kops.rglru_gated_scan
     else:
-        ys, h_last = rglru_scan(gated_x, log_a, h0,
-                                use_pallas=cfg.use_pallas)
-    out = (ys * yb).to(x.dtype)                            # multiplicative gate
+        from repro_torch.kernels.ref import rglru_gated_scan as gated_scan
+    out, h_last = gated_scan(xc32, pre_i, pre_r, p["lambda_param"], pre_y,
+                             h0)
     y = out @ p["w_out"].to(x.dtype)
     return y, RGLRUState(h=h_last, conv=new_tail)
 

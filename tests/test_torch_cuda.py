@@ -8,7 +8,8 @@ the card. Every test is marked ``cuda`` and skips where
 Inputs come from numpy with a seed. Tolerances: 2e-5 in fp32 and 2e-2 in
 bf16 for the attention kernels and RMSNorm (the fused residual sum bit for
 bit), 2e-4 for the SSD scan and 1e-5
-for the RG-LRU scan (``tests/test_kernels.py``); 5e-4 for a small fp32
+for the RG-LRU scan (``tests/test_kernels.py``; its fused form's fp32
+output too); 5e-4 for a small fp32
 model through the kernels against the same model through the plain
 versions. A bf16 output must also lie within a relative L2 of 1e-3 of the
 plain version's, as ``chip_smoke.py`` holds it (``BF16_REL_L2``).
@@ -67,9 +68,16 @@ SSD_SHAPES = [(1, 128, 4, 64, 1, 64, 32), (2, 256, 8, 32, 2, 32, 64),
 SSD_MORE = [(8, 64, 64, 64, 1, 128, 64), (1, 128, 8, 32, 2, 64, 32),
             (2, 192, 16, 64, 1, 128, 64), (1, 40, 4, 24, 2, 20, 8),
             (8, 256, 64, 64, 1, 128, 128), (1, 64, 4, 48, 1, 64, 32)]
-# (B, S, W): the sweep of tests/test_kernels.py, then recurrentgemma-9b's
+# (B, S, W): the sweep of tests/test_kernels.py, then recurrentgemma-9b's;
+# beyond them a decode step's one token, S = 3 (chunks of 2, the last cut),
+# three time tiles with a cut chunk, and an odd W (a lane tile cut by W)
 RGLRU_SHAPES = [(1, 64, 128), (2, 256, 256), (3, 128, 384), (1, 64, 4096),
                 (1, 256, 4096), (2, 2, 4096)]
+RGLRU_MORE = [(8, 1, 4096), (1, 3, 4096), (2, 300, 4096), (3, 37, 130)]
+# the fused form: the sweep, recurrentgemma-9b's 64-token and 2-token
+# prefill buckets and its decode step at max_batch 8
+RGLRU_GATED_SHAPES = [(1, 64, 128), (2, 256, 256), (3, 128, 384),
+                      (1, 64, 4096), (1, 2, 4096), (8, 1, 4096)]
 SSD_TOL = dict(rtol=2e-4, atol=2e-4)
 LRU_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -347,14 +355,17 @@ def test_ssd_kernel_smaller_clusters(cuda, monkeypatch, cluster, b, s, h, p,
                                **SSD_TOL)
 
 
-@pytest.mark.parametrize("B,S,W", RGLRU_SHAPES)
-def test_rglru_kernel_matches_plain(cuda, B, S, W):
-    rng = np.random.default_rng(5)
+def _rglru_inputs(seed, B, S, W, device):
+    """The distributions of ``test_rglru_sweep``, drawn with numpy."""
+    rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, S, W))
     log_a = -np.log1p(np.exp(rng.standard_normal((B, S, W))))
     h0 = rng.standard_normal((B, W))
-    args = [torch.from_numpy(a.astype(np.float32)).to(cuda)
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
             for a in (x, log_a, h0)]
+
+
+def _rglru_case(args):
     before = lru.rglru_scan.launches
     ys, hl = lru.rglru_scan(*args)
     torch.cuda.synchronize()
@@ -362,6 +373,74 @@ def test_rglru_kernel_matches_plain(cuda, B, S, W):
     ys_r, hl_r = lru.rglru_scan_plain(*args)
     np.testing.assert_allclose(ys.cpu().numpy(), ys_r.cpu().numpy(),
                                **LRU_TOL)
+    np.testing.assert_allclose(hl.cpu().numpy(), hl_r.cpu().numpy(),
+                               **LRU_TOL)
+    # the last chunk's fold is the fix-up of its last step
+    assert torch.equal(hl, ys[:, -1])
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_SHAPES + RGLRU_MORE)
+def test_rglru_kernel_matches_plain(cuda, B, S, W):
+    _rglru_case(_rglru_inputs(5, B, S, W, cuda))
+
+
+@pytest.mark.parametrize("tile_w,chunk,chunks", [(8, 4, 32), (32, 4, 8),
+                                                 (32, 1, 1), (16, 2, 4),
+                                                 (1, 4, 2), (13, 1, 19)])
+def test_rglru_kernel_other_plans(cuda, monkeypatch, tile_w, chunk, chunks):
+    """Plans the card's SM count does not pick: lane tiles of 1 to 32 (13
+    cuts W), every chunk length, one chunk a time tile (a tile per step) and
+    32; on contiguous inputs and on strided views, one of them not 16-byte
+    aligned."""
+    monkeypatch.setattr(lru, "plan",
+                        lambda *a: lru.Plan(tile_w, chunk, chunks))
+    _rglru_case(_rglru_inputs(6, 3, 70, 256, cuda))
+    x, log_a, h0 = _rglru_inputs(7, 2, 40, 260, cuda)
+    big = torch.zeros((2, 40, 264), device=cuda)
+    big[..., 1:261] = x
+    wide = torch.zeros((2, 80, 260), device=cuda)
+    wide[:, ::2] = log_a
+    _rglru_case([big[..., 1:261], wide[:, ::2], h0])
+    gated = _gated_inputs(8, 2, 40, 260, "bfloat16", cuda)
+    out, hl = lru.rglru_gated_scan(*gated)
+    out_r, hl_r = lru.rglru_gated_scan_plain(*gated)
+    _close(out, out_r, "bfloat16")
+    np.testing.assert_allclose(hl.cpu().numpy(), hl_r.cpu().numpy(),
+                               **LRU_TOL)
+
+
+def _gated_inputs(seed, B, S, W, dtype, device):
+    """xc, the gate pre-activations and the y branch from unit normals, h0
+    too, and lambda from the block's init, 0.9 + 0.099 U(0, 1)."""
+    xc, pre_i, pre_r, pre_y, h0 = _normal(seed, (B, S, W), (B, S, W),
+                                          (B, S, W), (B, S, W), (B, W))
+    lam = 0.9 + 0.099 * np.random.default_rng(seed + 1).random(W)
+    f32 = [_dev(a, "float32", device) for a in (xc, pre_i, pre_r)]
+    return (*f32, _dev(lam.astype(np.float32), "float32", device),
+            _dev(pre_y, dtype, device), _dev(h0, "float32", device))
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_GATED_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_gated_kernel_matches_plain(cuda, B, S, W, dtype):
+    """The fused form against its plain version, the recurrent block's op
+    sequence: out in pre_y's dtype (fp32 within the scan's 1e-5, bf16 at
+    the bf16 tolerance and rel-L2), h_last within 1e-5; one launch, counted
+    as gated or as a step by S."""
+    args = _gated_inputs(12, B, S, W, dtype, cuda)
+    f = lru.rglru_scan
+    n = (f.launches, f.gated_launches, f.step_launches)
+    out, hl = lru.rglru_gated_scan(*args)
+    torch.cuda.synchronize()
+    assert (f.launches, f.gated_launches, f.step_launches) == (
+        n[0] + 1, n[1] + (S > 1), n[2] + (S == 1))
+    out_r, hl_r = lru.rglru_gated_scan_plain(*args)
+    assert out.dtype == out_r.dtype == getattr(torch, dtype)
+    if dtype == "float32":
+        np.testing.assert_allclose(out.cpu().numpy(), out_r.cpu().numpy(),
+                                   **LRU_TOL)
+    else:
+        _close(out, out_r, dtype)
     np.testing.assert_allclose(hl.cpu().numpy(), hl_r.cpu().numpy(),
                                **LRU_TOL)
 
@@ -442,17 +521,30 @@ def test_kernel_model_matches_plain(cuda):
                                rtol=5e-4, atol=5e-4)
 
 
+def _hybrid_counts(L):
+    """A forward's and a decode step's launches in a hybrid of L layers:
+    the fused RG-LRU form once per rec layer in both."""
+    rec = 2 * (L // 3) + L % 3
+    norms = {"rmsnorm": 2 * L + 1, "rmsnorm_fused": 2 * L}
+    return ({**norms, "rglru_scan": rec, "rglru_gated": rec,
+             "rglru_gated_step": 0},
+            {**norms, "rglru_scan": rec, "rglru_gated": 0,
+             "rglru_gated_step": rec, "decode_attention": L // 3})
+
+
 @pytest.mark.parametrize("arch,counts", [
-    ("mamba2-1.3b", lambda L: {"ssd_scan": L, "rmsnorm": L + 1,
-                               "rmsnorm_fused": L}),
-    ("recurrentgemma-9b", lambda L: {"rglru_scan": 2 * (L // 3) + L % 3,
-                                     "rmsnorm": 2 * L + 1,
-                                     "rmsnorm_fused": 2 * L}),
+    ("mamba2-1.3b", lambda L: ({"ssd_scan": L, "rmsnorm": L + 1,
+                                "rmsnorm_fused": L},
+                               {"ssd_scan": 0, "rmsnorm": L + 1,
+                                "rmsnorm_fused": L})),
+    ("recurrentgemma-9b", _hybrid_counts),
 ])
 def test_kernel_state_models_match_plain(cuda, arch, counts):
     """Reduced Mamba-2 and RecurrentGemma (5 layers: a unit and a tail) in
     fp32: forward through the kernels against the plain versions, with the
-    launches the path should make; then one decode step of each."""
+    launches the path should make; then one decode step of each, with its
+    launches (RecurrentGemma's recurrence is one fused RG-LRU launch a rec
+    layer there too)."""
     cfg = get_config(arch).reduced()
     if cfg.arch_type == "hybrid":
         cfg = cfg.replace(num_layers=5)
@@ -465,12 +557,17 @@ def test_kernel_state_models_match_plain(cuda, arch, counts):
     lk, _ = km.forward(params, toks)
     lp, _ = build_model(cfg).forward(params, toks)
     after = launch_counts()
-    for name, n in counts(cfg.num_layers).items():
+    fwd_counts, step_counts = counts(cfg.num_layers)
+    for name, n in fwd_counts.items():
         assert after[name] - before[name] == n, name
     np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(),
                                rtol=5e-4, atol=5e-4)
     _, cache = km.prefill(params, toks[:, :39])
     pos = torch.full((2,), 39, dtype=torch.long, device=cuda)
+    before = launch_counts()
     dl, _ = km.decode_step(params, toks[:, 39:], cache, pos)
+    after = launch_counts()
+    for name, n in step_counts.items():
+        assert after[name] - before[name] == n, name
     np.testing.assert_allclose(dl[:, 0].cpu().numpy(),
                                lk[:, 39].cpu().numpy(), rtol=1e-3, atol=1e-3)

@@ -95,6 +95,42 @@ def test_rglru_scan_block_matches_jax(use_pallas):
     _close(hl.numpy(), hl_j, **LRU_TOL)
 
 
+@pytest.mark.parametrize("S,carried", [(48, False), (1, True)])
+@pytest.mark.parametrize("jax_pallas", [False, True])
+def test_rglru_gated_block_matches_jax(S, carried, jax_pallas):
+    """The recurrent block through the fused form's plain version (what
+    the block runs on the CPU, kernels or not) against the JAX package's
+    ``rglru_block_forward`` on the same weights: a 48-token prefill from a
+    zero state, and a decode step's one token from a carried state (the
+    JAX package's inline step); the JAX side through its plain scan or its
+    Pallas kernel."""
+    cfg = get_config(ARCH).reduced()
+    jcfg = jax_get_config(ARCH).reduced().replace(use_pallas=jax_pallas)
+    jp = jblocks.init_rglru_block(jax.random.PRNGKey(3), jcfg)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    B, W = 2, cfg.lru_width
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    jstate = tstate = None
+    if carried:
+        h = rng.standard_normal((B, W)).astype(np.float32)
+        conv = rng.standard_normal((B, cfg.conv_kernel - 1, W)).astype(
+            np.float32)
+        jstate = jblocks.RGLRUState(h=jnp.asarray(h), conv=jnp.asarray(conv))
+        tstate = blocks.RGLRUState(h=torch.from_numpy(h),
+                                   conv=torch.from_numpy(conv))
+    for use_pallas in (False, True):
+        y, st = blocks.rglru_block_forward(
+            tp, cfg.replace(use_pallas=use_pallas), torch.from_numpy(x),
+            tstate)
+        jy, jst = jblocks.rglru_block_forward(jp, jcfg, jnp.asarray(x),
+                                              jstate)
+        assert y.shape == (B, S, cfg.d_model)
+        _close(y.numpy(), jy, **LRU_TOL)
+        _close(st.h.numpy(), jst.h, **LRU_TOL)
+        _close(st.conv.numpy(), jst.conv, **LRU_TOL)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_wide_group_matches_jax(dtype):
     """16 query heads over one kv head at head_dim 256, ring-buffer

@@ -18,6 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.ssd import ssd_scan_kernel
 from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+from repro_torch.kernels import rglru as lru
 from repro_torch.kernels import rmsnorm as rms
 from repro_torch.kernels import ssd
 
@@ -178,9 +179,16 @@ def test_cpu_tensors_run_the_plain_versions_uncounted():
                  chunk=8)
     x = torch.randn(2, 8, 64)
     ops.rglru_scan(x, -torch.rand(2, 8, 64), x[:, 0])
+    lam = torch.rand(64)
+    for s in (8, 1):          # a prefill and a decode step
+        args = (x[:, :s], x[:, :s], x[:, :s], lam, x[:, :s], x[:, 0])
+        for got, want in zip(ops.rglru_gated_scan(*args),
+                             lru.rglru_gated_scan_plain(*args)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert launch_counts() == {"rmsnorm": 0, "rmsnorm_fused": 0,
                                "flash_attention": 0, "decode_attention": 0,
-                               "ssd_scan": 0, "rglru_scan": 0}
+                               "ssd_scan": 0, "rglru_scan": 0,
+                               "rglru_gated": 0, "rglru_gated_step": 0}
 
 
 def test_other_devices_raise():
@@ -199,6 +207,8 @@ def test_other_devices_raise():
                      q[:, :, :1], q[:, :, :1], chunk=4)
     with pytest.raises(ValueError):
         ops.rglru_scan(q[0], q[0], q[0, 0])
+    with pytest.raises(ValueError):
+        ops.rglru_gated_scan(q[0], q[0], q[0], q[0, 0, 0], q[0], q[0, 0])
 
 
 @pytest.mark.parametrize("b,s,chunk,blocks,stages", [
@@ -406,3 +416,81 @@ def test_ssd_3xtf32_matches_pallas(s, chunk):
     y1 = _ssd_tf32(*args, chunk, passes=1)[0].numpy()
     y_ref = np.asarray(want[0])
     assert not np.allclose(y1, y_ref, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU kernel's chunk order (CPU emulation) against the Pallas kernel
+# ---------------------------------------------------------------------------
+
+RGLRU_SWEEP = [(1, 64, 128), (2, 256, 256), (3, 128, 384)]
+
+
+def _rglru_chunked(x, log_a, h0, p):
+    """The arithmetic of ``csrc/rglru_scan.cu`` under plan ``p``: each chunk
+    of ``rglru.chunk_bounds`` scanned from zero with the running product of
+    a, the chunks of a time tile folded in order onto its incoming state for
+    each chunk's carry, each step fixed up as local + product * carry, and
+    the tile's end state carried to the next tile. Products and sums are
+    rounded apart, as the kernel rounds them."""
+    a = torch.exp(log_a)
+    gx = torch.sqrt(torch.clamp(1.0 - a * a, 1e-9, 1.0)) * x
+    ys = torch.empty_like(x)
+    h = h0.clone()
+    T = p.chunk * p.chunks
+    bounds = lru.chunk_bounds(x.shape[1], p)
+    for t0 in range(0, x.shape[1], T):
+        tile = []
+        for s, e in (b for b in bounds if t0 <= b[0] < t0 + T):
+            loc, prod, steps = gx[:, s], a[:, s], []
+            steps.append((loc, prod))
+            for t in range(s + 1, e):
+                loc = a[:, t] * loc + gx[:, t]
+                prod = prod * a[:, t]
+                steps.append((loc, prod))
+            tile.append((s, steps))
+        for s, steps in tile:
+            cin = h
+            for t, (loc, prod) in enumerate(steps, start=s):
+                ys[:, t] = prod * cin + loc
+            loc, prod = steps[-1]
+            h = prod * h + loc
+    return ys, h
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_SWEEP + [(1, 64, 4096)])
+def test_rglru_chunked_order_matches_pallas(B, S, W):
+    """The kernel's order of sums, at the plan the card gets, lies within
+    the scan's 1e-5 of the Pallas kernel (interpret mode), and its h_last is
+    its last y bit for bit, as the kernel's is."""
+    rng = np.random.default_rng(30)
+    f = np.float32
+    x = rng.standard_normal((B, S, W)).astype(f)
+    log_a = (-np.log1p(np.exp(rng.standard_normal((B, S, W))))).astype(f)
+    h0 = rng.standard_normal((B, W)).astype(f)
+    want = jops.rglru_scan(*(jnp.asarray(v) for v in (x, log_a, h0)))
+    p = lru.plan(B, S, W)
+    ys, hl = _rglru_chunked(*(torch.from_numpy(v) for v in (x, log_a, h0)),
+                            p)
+    for got, ref in zip((ys, hl), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)
+    assert torch.equal(hl, ys[:, -1])
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 64, 4096), (8, 1, 4096),
+                                   (1, 2, 4096), (1, 3, 4096),
+                                   (1, 256, 4096), (2, 300, 4096),
+                                   (3, 37, 130)] + RGLRU_SWEEP)
+def test_rglru_plan_fills_the_card_and_tiles_time(B, S, W):
+    """On 132 SMs: at batch 1, 64 tokens and recurrentgemma-9b's width, at
+    least 128 blocks (two an SM); every plan within the kernel's limits,
+    and its chunks tile S exactly, in order, each at most a chunk long."""
+    p = lru.plan(B, S, W, 132)
+    if (B, S, W) == (1, 64, 4096):
+        assert p.blocks(B, W) >= 128 and p.threads >= 128
+    assert 1 <= p.tile_w <= lru.MAX_TILE_W and p.chunk in (1, 2, 4)
+    assert p.threads <= lru.MAX_THREADS
+    bounds = lru.chunk_bounds(S, p)
+    assert bounds[0][0] == 0 and bounds[-1][1] == S
+    assert all(e0 == s1 for (_, e0), (s1, _) in zip(bounds, bounds[1:]))
+    assert all(0 < e - s <= p.chunk for s, e in bounds)

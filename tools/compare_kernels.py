@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the RMSNorm and SSD-scan kernels of two checkouts on one CUDA card.
+"""Time the RMSNorm, SSD-scan and RG-LRU kernels of two checkouts on one CUDA
+card.
 
     python3 tools/compare_kernels.py OTHER_CHECKOUT [--reps 30]
 
@@ -18,7 +19,13 @@ this, this, other. A turn times, on the same seeded inputs:
   (``unfused_ms``);
 - the SSD scan at mamba2-1.3b's 64-token bucket, x (1, 64, 64, 64), B/C
   (1, 64, 1, 128), chunk 64, and at (1, 256, 64, 64) with chunk 128, with
-  its decay rates (A = linspace(1, 16)): ``ms`` and ``kernel_us``.
+  its decay rates (A = linspace(1, 16)): ``ms`` and ``kernel_us``;
+- the RG-LRU scan at recurrentgemma-9b's width, x (1, 64, 4096) and
+  (1, 256, 4096) fp32: ``ms`` and ``kernel_us``; where the checkout has
+  the fused form (``rglru_gated_scan``), the same for it at the 64-token
+  prefill (1, 64, 4096) and the decode step (8, 1, 4096), bf16
+  activations, and its function with the gate ops launched apart around
+  the scan kernel (``unfused_ms``).
 
 Prints one JSON line per checkout, shape and turn, each with the card's
 name and power limit, then one line per shape with the better of each
@@ -35,6 +42,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RMS_SHAPES = [(8, 3072), (64, 3072)]
 SSD_SHAPES = [(1, 64, 64, 64, 1, 128, 64), (1, 256, 64, 64, 1, 128, 128)]
+RGLRU_SHAPES = [(1, 64, 4096), (1, 256, 4096)]
+GATED_SHAPES = [(1, 64, 4096), (8, 1, 4096)]
 
 
 def measure(tree: str, label: str, reps: int) -> None:
@@ -42,20 +51,22 @@ def measure(tree: str, label: str, reps: int) -> None:
     sys.path.insert(0, os.path.join(tree, "src"))
     sys.path.insert(0, ROOT)
     import torch
-    from chip_smoke import (card_line, device_ms, host_us, kernel_us, randn,
-                            ssd_inputs)
+    from chip_smoke import (card_line, device_ms, gated_inputs,
+                            gated_unfused, host_us, kernel_us, randn,
+                            rglru_inputs, ssd_inputs)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import rglru as lru
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssd
     assert os.path.realpath(rms.__file__).startswith(os.path.realpath(tree))
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
-    _build.build_all([n for n in ("rmsnorm", "ssd_scan")
+    _build.build_all([n for n in ("rmsnorm", "ssd_scan", "rglru_scan")
                       if n in _build.SOURCES])
     gen = torch.Generator(device=dev).manual_seed(3)
     bf = torch.bfloat16
-    names = ("rmsnorm", "ssd_scan")       # the parent's Triton kernel too
+    names = ("rmsnorm", "ssd_scan", "rglru_scan")  # either tree's kernels
 
     def emit(**row):
         print(json.dumps(dict(row, tree=label, card=card)), flush=True)
@@ -82,6 +93,21 @@ def measure(tree: str, label: str, reps: int) -> None:
         emit(kernel="ssd_scan", shape=[b, s, h, p, g, n, c],
              ms=device_ms(torch, run, reps),
              kernel_us=kernel_us(torch, run, reps, names))
+    for (B, S, W) in RGLRU_SHAPES:
+        args = rglru_inputs(torch, gen, B, S, W)
+        run = lambda: lru.rglru_scan(*args)  # noqa: E731
+        emit(kernel="rglru_scan", shape=[B, S, W],
+             ms=device_ms(torch, run, reps),
+             kernel_us=kernel_us(torch, run, reps, names))
+    if hasattr(lru, "rglru_gated_scan"):
+        for (B, S, W) in GATED_SHAPES:
+            args = gated_inputs(torch, gen, B, S, W, bf)
+            run = lambda: lru.rglru_gated_scan(*args)  # noqa: E731
+            emit(kernel="rglru_gated_scan", shape=[B, S, W],
+                 ms=device_ms(torch, run, reps),
+                 kernel_us=kernel_us(torch, run, reps, names),
+                 unfused_ms=device_ms(
+                     torch, lambda: gated_unfused(torch, lru, *args), reps))
 
 
 def main() -> None:
