@@ -28,13 +28,26 @@ failure, or when there is no card or no checkout beside it. Phases:
    against the plain versions (recurrentgemma-9b cut to 5 layers: a unit
    and the tail), the prefill->decode contract, and bf16 judged against
    fp32, at 2 layers (a hybrid: 5) and at full depth.
-4. Serve: ``InferenceEngine`` + ``TorchBackend`` + the AGFT tuner over 8
-   ``normal`` requests for each of the three models, the launch counts set
-   to 0 before each and read after it; each kernel of a model's path must
-   have run there, as many times as the path says, and as many RMSNorm
-   launches must have taken the residual add in, and as many RG-LRU
-   launches the recurrent block's gates, over a prefill and over a decode
-   step.
+4. Graphs and serve: for each of the three models, a ``TorchBackend``
+   (which captures its decode step and a forward a prefill bucket as CUDA
+   graphs) in fp32 at phase 3's depth and in bf16 at full depth; each
+   graph's replays against the eager step it captured, bit for bit
+   (``torch.equal``): three decode steps of random tokens from a random
+   cache (logits and every cache tensor; recurrentgemma-9b's rows cross
+   its 2048-slot ring) and every prefill bucket. Then ``InferenceEngine``
+   + the bf16 backend + the AGFT tuner over 8 ``normal`` requests, the
+   launch counts set to 0 before and read after; each kernel of a model's
+   path must have run there, as many times as the path says (a replay
+   counts the launches its capture recorded), and as many RMSNorm
+   launches must have taken the residual add in, and as many RG-LRU launches the recurrent block's
+   gates, over a prefill and over a decode step. The same 8 requests are
+   served again under ``static`` at f_max from a zeroed cache, with the
+   same checks, and each run's energy per token and EDP (the DVFS model's)
+   are printed. Last, a decode step and the largest prefill bucket's
+   forward traced and timed, eager and as a graph; each trace must hold
+   as many of the port's kernels as the launch counts say ran (a replay:
+   as many as its capture recorded), or it is taken again, 3 times in
+   all, before the run fails.
 
 The last lines are a JSON object with each kernel's numbers (a row per
 kernel and timed shape; its launches are those of the serve runs whose
@@ -125,12 +138,7 @@ ROWS = {"rmsnorm": ("rmsnorm", MODELS),
 # serve runs prefill at most 64 tokens, so no serve launch is at the
 # chunk-128 SSD row's shape
 
-
-# the port's kernels by a part of their device names in a profiler trace
-PORT_KERNELS = ("rmsnorm_kernel", "flash_fwd_kernel", "flash_mma_kernel",
-                "decode_partial_kernel", "decode_mma_kernel",
-                "decode_combine_kernel", "ssd_scan_kernel",
-                "rglru_scan_kernel")
+TRACE_TRIES = 3          # traces taken before a short one fails the run
 
 
 def fail(msg: str) -> None:
@@ -192,25 +200,46 @@ def device_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_us(torch, fn, reps: int = 30, names=PORT_KERNELS) -> float:
-    """The device time of the port's kernels that one call of ``fn``
-    launches, in us: ``torch.profiler`` over ``reps`` calls, summed over the
-    kernels whose names hold one of ``names``. Unlike ``device_ms`` it
-    leaves out the launch gaps and the event pair."""
+def port_events(events):
+    """The device kernels of the port among a profiler's
+    ``key_averages()``, by ``repro_torch.kernels.DEVICE_KERNELS``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type != DeviceType.CPU
-                and any(n in e.key for n in names))
-    if not total:
-        fail(f"the profiler saw none of the kernels {names}")
-    return total / reps
+    from repro_torch.kernels import DEVICE_KERNELS
+    names = [n for _, group in DEVICE_KERNELS.values() for n in group]
+    return [e for e in events if e.device_type != DeviceType.CPU
+            and any(n in e.key for n in names)]
+
+
+def traced(torch, fn, calls: int, cpu: bool = False):
+    """``torch.profiler`` over ``calls`` calls of ``fn``
+    (``kernels.profile_calls``, after a warm-up step): its
+    ``key_averages()`` and the wall time of one call in s. A trace is kept
+    only if it holds, of each group of the port's kernels
+    (``DEVICE_KERNELS``), as many as the launch counts rose by over those
+    calls, a graph's replay by what its capture recorded. The profiler has
+    dropped the first kernels of a trace on the H100: a trace short of
+    them is taken again, ``TRACE_TRIES`` times in all, then the run
+    fails."""
+    from repro_torch.kernels import (device_launches, profile_calls,
+                                     traced_launches)
+    for attempt in range(TRACE_TRIES):
+        events, risen, wall = profile_calls(fn, calls, cpu)
+        want = device_launches(risen)
+        seen = traced_launches(events)
+        if seen == want:
+            return events, wall
+        say(f"  trace {attempt + 1} of {TRACE_TRIES} is short: the profiler "
+            f"saw {seen} of the port's kernels, the counts say {want}")
+    fail(f"the profiler missed kernels that ran in {TRACE_TRIES} traces")
+
+
+def kernel_us(torch, fn, reps: int = 30) -> float:
+    """The device time of the port's kernels that one call of ``fn``
+    launches, in us, from a trace of ``reps`` calls that holds every one of
+    them (``traced``). Unlike ``device_ms`` it leaves out the launch gaps
+    and the event pair."""
+    events, _ = traced(torch, fn, reps)
+    return sum(e.self_device_time_total for e in port_events(events)) / reps
 
 
 def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
@@ -678,7 +707,7 @@ def check_model(torch, dev, cfg, fp32_layers=None):
     BF16_VS_PLAIN at most; at BF16_CUT_LAYERS, where the drift is small,
     and at full depth."""
     import numpy as np
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, tree_tensors
     gen = torch.Generator(device=dev).manual_seed(0)
     S = 64
     toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -687,7 +716,7 @@ def check_model(torch, dev, cfg, fp32_layers=None):
     with torch.no_grad():
         params = build_model(cfg).init(gen)
         torch.cuda.synchronize()
-        n_params = sum(t.numel() for t in _leaves(params))
+        n_params = sum(t.numel() for t in tree_tensors(params))
         say(f"  {cfg.name}: {n_params / 1e9:.3f} B params "
             f"({cfg.num_layers} layers, d_model {cfg.d_model}), init "
             f"{time.perf_counter() - t0:.1f} s")
@@ -749,40 +778,110 @@ def prefix(cfg, params, layers):
             dict(params, layers=params["layers"][:layers]))
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 # ---------------------------------------------------------------------------
 # phase 4: serve under AGFT
 # ---------------------------------------------------------------------------
 
-def serve(torch, dev, cfg):
+def graphs_and_serve(torch, dev, cfg):
+    """Phase 4 for one model; returns the AGFT serve run's launch counts."""
+    from repro_torch.energy import H100
+    from repro_torch.serving import TorchBackend
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    if cfg.arch_type == "hybrid":
+        c32 = c32.replace(num_layers=HYBRID_FP32_LAYERS)
+    for c in (c32, cfg):
+        backend = None                    # free the last one first
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        backend = TorchBackend(c, H100, max_batch=8, cache_len=2048,
+                               device=dev)
+        torch.cuda.synchronize()
+        graphs = backend.graphs
+        say(f"  {c.name} {c.dtype} at {c.num_layers} layers: backend ready "
+            f"in {time.perf_counter() - t0:.1f} s; {len(graphs)} graphs "
+            f"captured in {sum(g.capture_s for g in graphs):.2f} s (warm-up "
+            f"included), holding "
+            f"{sum(g.memory_bytes for g in graphs) / 2**20:.1f} MiB; a "
+            f"decode replay launches {backend.decode_graph.launches}")
+        check_graphs(torch, dev, backend)
+    counts = serve(torch, backend, "agft")
+    serve(torch, backend, "static")
+    trace_steps(torch, backend)
+    return counts
+
+
+def check_graphs(torch, dev, backend, steps: int = 3):
+    """Each graph of the backend against the eager step it captured, bit for
+    bit: ``steps`` decode steps of random tokens from a random cache (the
+    graph on the backend's cache, the eager step on a clone of it), and
+    every prefill bucket's forward. recurrentgemma-9b's rows cross its
+    2048-slot ring. The cache and the token are zeroed again after."""
+    from repro_torch.models import tree_clone, tree_tensors
+    cfg, B = backend.cfg, backend.max_batch
+    gen = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        for t in tree_tensors(backend.cache):
+            t.normal_(generator=gen)
+        eager_cache = tree_clone(backend.cache)
+        start = ([600, 1, 37, 2045, 2046, 2047, 3000, 4094]
+                 if cfg.arch_type == "hybrid"
+                 else [600, 1, 37, 255, 1024, 1500, 2000, 2040])[:B]
+        bad = []
+        for step in range(steps):
+            pos = torch.tensor([p + step for p in start], device=dev)
+            backend.pos.copy_(pos)
+            backend.token.random_(0, cfg.vocab_size, generator=gen)
+            got = backend.decode_graph()
+            want = backend.model.decode_step(backend.params, backend.token,
+                                             eager_cache, pos)[0]
+            same = [torch.equal(a, b) for a, b in
+                    zip(tree_tensors(backend.cache),
+                        tree_tensors(eager_cache))]
+            if not (torch.equal(got, want) and all(same)):
+                bad.append(f"decode step {step}: logits "
+                           f"{torch.equal(got, want)}, cache tensors equal "
+                           f"{sum(same)}/{len(same)}")
+        for n, graph in backend.prefill_graphs.items():
+            toks = torch.zeros((1, n), dtype=torch.long, device=dev)
+            if not torch.equal(graph(),
+                               backend.model.forward(backend.params, toks)[0]):
+                bad.append(f"prefill bucket {n}")
+        for t in tree_tensors(backend.cache):
+            t.zero_()
+        backend.token.zero_()
+        torch.cuda.synchronize()
+    say(f"  graphs vs eager, bit for bit: {steps} decode steps from rows at "
+        f"{start}, logits and {len(same)} cache tensors; prefill buckets "
+        f"{list(backend.prefill_graphs)}: {'ok' if not bad else bad}")
+    if bad:
+        fail(f"{cfg.name} {cfg.dtype}: a CUDA graph's replay differs from "
+             "the eager step: " + "; ".join(bad))
+
+
+def serve(torch, backend, policy_name):
+    """8 ``normal`` requests through ``InferenceEngine`` on ``backend`` under
+    a registered policy (``static``: pinned at f_max), from a zeroed cache,
+    with the launch checks of the path; returns the run's launch counts."""
     from repro_torch.energy import H100
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import tree_tensors
     from repro_torch.policies import get_policy
-    from repro_torch.serving import EngineConfig, InferenceEngine, \
-        TorchBackend
+    from repro_torch.serving import EngineConfig, InferenceEngine
     from repro_torch.workloads import PROTOTYPES, generate_requests
-    t0 = time.perf_counter()
-    backend = TorchBackend(cfg, H100, max_batch=8, cache_len=2048,
-                           device=dev)
+    cfg = backend.cfg
     eng = InferenceEngine(cfg, EngineConfig(max_num_seqs=8), hardware=H100,
                           backend=backend)
-    tuner = get_policy("agft", H100, sampling_period_s=0.2)
+    kw = {"frequency_mhz": H100.f_max} if policy_name == "static" else {}
+    tuner = get_policy(policy_name, H100, sampling_period_s=0.2, **kw)
     reqs = generate_requests(PROTOTYPES["normal"], 8, seed=0)
     for r in reqs:
         r.output_len = min(r.output_len, 64)
     eng.submit(reqs)
+    for t in tree_tensors(backend.cache):
+        t.zero_()
+    fwd0, dec0 = backend.prefill_steps, backend.decode_steps
+    walls0 = len(backend.decode_wall_s)
     torch.cuda.synchronize()
-    say(f"  backend ready in {time.perf_counter() - t0:.1f} s")
     reset_launch_counts()                 # count the main path alone
     t0 = time.perf_counter()
     eng.drain(policy=tuner)
@@ -790,25 +889,34 @@ def serve(torch, dev, cfg):
     wall = time.perf_counter() - t0
     counts = launch_counts()
     c = eng.metrics.c
-    step_ms = (1e3 * statistics.median(backend.decode_wall_s)
-               if backend.decode_wall_s else float("nan"))
-    say(f"  {c.iterations_total} iterations ({backend.prefill_steps} "
-        f"prefill forwards, {backend.decode_steps} decode steps) in "
-        f"{wall:.2f} s wall; median decode step {step_ms:.3f} ms")
+    lengths = backend.prefill_lengths[fwd0:]
+    dec = backend.decode_steps - dec0
+    walls = backend.decode_wall_s[walls0:]
+    step_ms = 1e3 * statistics.median(walls) if walls else float("nan")
+    say(f"  {cfg.name} under {policy_name}: {c.iterations_total} iterations "
+        f"({len(lengths)} prefill forwards, {dec} decode steps) in "
+        f"{wall:.2f} s wall; median decode step {step_ms:.3f} ms (graph)")
+    tokens = c.generation_tokens_total
+    e_tok = c.energy_joules_total / max(tokens, 1)
+    edp = c.energy_joules_total * c.busy_seconds_total / max(tokens, 1)
     say(f"  finished {len(eng.finished)}/8, energy {c.energy_joules_total:.3f}"
-        f" J (DVFS model), tuner rounds {tuner.round}")
+        f" J (DVFS model), {tokens} tokens: {e_tok:.6f} J/token, EDP "
+        f"{edp:.6f} J s (energy x busy s / token); policy decisions "
+        f"{len(tuner.history)}")
     say(f"  frequency history (MHz): "
         f"{[h['freq'] for h in tuner.history]}")
     say(f"  kernel launches on the serve path: {counts}")
-    say(f"  prefill lengths: {backend.prefill_lengths}")
+    say(f"  prefill lengths: {lengths}")
     checks = {
         "all 8 requests finished": len(eng.finished) == 8,
         "generated == output_len": all(r.generated == r.output_len
                                        for r in eng.finished),
         "energy > 0": c.energy_joules_total > 0,
-        "tuner.round >= 1": tuner.round >= 1,
+        "the policy decided": len(tuner.history) >= 1,
     }
-    want = path_launches(cfg, backend)
+    if policy_name == "agft":
+        checks["tuner.round >= 1"] = tuner.round >= 1
+    want = path_launches(cfg, lengths, dec)
     for name, n in counts.items():
         checks[f"{name} launches == {want.get(name, 0)}"] = \
             n == want.get(name, 0)
@@ -816,12 +924,12 @@ def serve(torch, dev, cfg):
         counts[name] > 0 for name in want)
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        fail(f"{cfg.name} serve phase: " + "; ".join(bad))
-    trace_decode(torch, dev, backend)
+        fail(f"{cfg.name} serve phase under {policy_name}: "
+             + "; ".join(bad))
     return counts
 
 
-def path_launches(cfg, backend):
+def path_launches(cfg, prefill_lengths, dec):
     """The launches each kernel of the model's path makes over the serve
     phase, from the forwards and decode steps it ran: per forward and per
     decode step, RMSNorm 2L+1 (dense, hybrid) or L+1 (Mamba-2: its gated
@@ -836,7 +944,7 @@ def path_launches(cfg, backend):
     decode step, or a one-token forward). Kernels absent here must not
     launch."""
     L = cfg.num_layers
-    fwd, dec = backend.prefill_steps, backend.decode_steps
+    fwd = len(prefill_lengths)
     if cfg.arch_type == "ssm":
         return {"rmsnorm": (L + 1) * (fwd + dec),
                 "rmsnorm_fused": L * (fwd + dec), "ssd_scan": L * fwd}
@@ -846,7 +954,7 @@ def path_launches(cfg, backend):
         pat = cfg.block_pattern
         units, tail = L // len(pat), L % len(pat)
         rec = units * pat.count("rec") + tail
-        multi = sum(n >= 2 for n in backend.prefill_lengths)
+        multi = sum(n >= 2 for n in prefill_lengths)
         return {**norms, "rglru_scan": rec * (fwd + dec),
                 "rglru_gated": rec * multi,
                 "rglru_gated_step": rec * (fwd - multi + dec),
@@ -854,52 +962,65 @@ def path_launches(cfg, backend):
     return {**norms, "flash_attention": L * fwd, "decode_attention": L * dec}
 
 
-def trace_decode(torch, dev, backend, steps: int = 4):
-    """Where a decode step's time goes: ``torch.profiler`` over a few steps
-    of the serve phase's model and cache (launches here are not counted
-    into the serve path's). Prints the device-busy share of the traced
-    wall time and the top device kernels and host ops."""
+def trace_steps(torch, backend, steps: int = 4, timed: int = 20):
+    """Where a decode step's time goes, and the largest prefill bucket's,
+    each run eagerly and as the backend's graph, on the serve phase's model
+    and cache (the decode step at context 600; launches here are not
+    counted into the serve path's): the median wall time of ``timed``
+    calls each ended by a synchronize, then ``torch.profiler`` over
+    ``steps`` calls (``traced``: the trace must hold every port kernel
+    that the launch counts say ran, a graph's as its capture recorded),
+    with the device-busy share of the traced wall time, the kernels a
+    call, and the top device kernels and host ops."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    B = backend.max_batch
-    tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
-    pos = torch.full((B,), 600, dtype=torch.long, device=dev)
-    step = lambda: backend.model.decode_step(  # noqa: E731
-        backend.params, tok, backend.cache, pos)
+    B, n = backend.max_batch, max(backend.prefill_graphs)
+    backend.pos.fill_(600)
+    toks = torch.zeros((1, n), dtype=torch.long, device=backend.device)
+    decode = f"decode step (context 600, batch {B})"
+    prefill = f"forward ({n} tokens)"
+    forms = {
+        f"eager {decode}": lambda: backend.model.decode_step(
+            backend.params, backend.token, backend.cache, backend.pos),
+        f"graph {decode}": backend.decode_graph,
+        f"eager {prefill}": lambda: backend.model.forward(backend.params,
+                                                          toks),
+        f"graph {prefill}": backend.prefill_graphs[n]}
     with torch.no_grad():
-        step()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step()
+        for label, step in forms.items():
+            step()
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / steps
-    # CPU ops also carry their kernels' device time: count the device-side
-    # kernel events alone
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type != DeviceType.CPU]
-    busy = sum(e.self_device_time_total for e in kernels) / steps / 1e3
-    say(f"  traced decode step (context 600, batch {B}): wall "
-        f"{1e3 * wall:.3f} ms, device busy {busy:.3f} ms "
-        f"({100 * busy / (1e3 * wall):.1f}%), "
-        f"{sum(e.count for e in kernels) // steps} kernels")
-    say("  top device kernels per step (ms, launches):")
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:8]:
-        say(f"    {e.self_device_time_total / steps / 1e3:8.4f}  "
-            f"{e.count // steps:5d}  {e.key[:90]}")
-    say("  the port's kernels per step (ms, launches):")
-    for e in sorted(kernels, key=lambda e: e.key):
-        if any(n in e.key for n in PORT_KERNELS):
-            say(f"    {e.self_device_time_total / steps / 1e3:8.4f}  "
-                f"{e.count // steps:5d}  {e.key[:90]}")
-    say("  top host ops per step (self cpu ms, calls):")
-    for e in sorted(events, key=lambda e: e.self_cpu_time_total,
-                    reverse=True)[:8]:
-        say(f"    {e.self_cpu_time_total / steps / 1e3:8.4f}  "
-            f"{e.count // steps:5d}  {e.key[:90]}")
+            walls = []
+            for _ in range(timed):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            events, wall = traced(torch, step, steps, cpu=True)
+            # CPU ops also carry their kernels' device time: count the
+            # device-side kernel events alone (not the span of the
+            # profiler's step, which is a device-side event too)
+            kernels = [e for e in events if e.device_type != DeviceType.CPU
+                       and not e.key.startswith("ProfilerStep")]
+            busy = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+            say(f"  {label}: median {1e3 * statistics.median(walls):.3f} ms "
+                f"of {timed}; traced wall {1e3 * wall:.3f} ms, device busy "
+                f"{busy:.3f} ms ({100 * busy / (1e3 * wall):.1f}%), "
+                f"{sum(e.count for e in kernels) // steps} kernels")
+            say(f"  {label}: top device kernels per call (ms, launches):")
+            for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                            reverse=True)[:6]:
+                say(f"    {e.self_device_time_total / steps / 1e3:8.4f}  "
+                    f"{e.count // steps:5d}  {e.key[:90]}")
+            say(f"  {label}: the port's kernels per call (ms, launches; "
+                "all that the counts say ran):")
+            for e in sorted(port_events(events), key=lambda e: e.key):
+                say(f"    {e.self_device_time_total / steps / 1e3:8.4f}  "
+                    f"{e.count // steps:5d}  {e.key[:90]}")
+            say(f"  {label}: top host ops per call (self cpu ms, calls):")
+            for e in sorted(events, key=lambda e: e.self_cpu_time_total,
+                            reverse=True)[:4]:
+                say(f"    {e.self_cpu_time_total / steps / 1e3:8.4f}  "
+                    f"{e.count // steps:5d}  {e.key[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -943,10 +1064,10 @@ def main() -> None:
         check_model(torch, dev, cfg, fp32_layers=(
             HYBRID_FP32_LAYERS if cfg.arch_type == "hybrid" else None))
 
-    say("== phase 4: serve under AGFT")
+    say("== phase 4: CUDA graphs, and serve under AGFT and static")
     counts = {}                           # model -> kernel -> launches
     for name in MODELS:
-        counts[name] = serve(torch, dev, get_config(name))
+        counts[name] = graphs_and_serve(torch, dev, get_config(name))
         torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,4 +1,4 @@
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, tree_clone, tree_tensors
 from repro_torch.models.registry import build_model
 
-__all__ = ["ModelConfig", "build_model"]
+__all__ = ["ModelConfig", "build_model", "tree_clone", "tree_tensors"]

@@ -6,7 +6,10 @@ chunked reference path (``ref_attention="chunked"``) of
 ``repro.models.attention`` are not ported yet and raise.
 
 The decode cache is updated in place: ``attention_decode`` writes the new
-token's K/V into the cache tensors it was given and returns them.
+token's K/V into the cache tensors it was given and returns them. What
+every attention layer of a step shares, the rope tables
+(``common.model_rope``) and the slots written and read
+(``decode_slots``), the models build once a step and pass down.
 """
 from __future__ import annotations
 
@@ -14,8 +17,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import (ModelConfig, apply_rope, dense_init,
-                                       rms_norm)
+from repro_torch.models.common import (ModelConfig, RopeTables, apply_rope,
+                                       dense_init, rms_norm)
 
 NEG_INF = -1e30
 
@@ -126,6 +129,27 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
         v=torch.zeros(shape, dtype=cfg.activation_dtype, device=device))
 
 
+class DecodeSlots(NamedTuple):
+    """Where a decode step writes each row's new K/V and which slots it
+    then reads, the same for every attention layer of one window kind."""
+    rows: torch.Tensor     # (B,) 0..B-1
+    slot: torch.Tensor     # (B,) the slot each row writes
+    valid: torch.Tensor    # (B, T) the live slots after the write
+
+
+def decode_slots(cfg: ModelConfig, cache_len: int, pos: torch.Tensor,
+                 window: int = 0) -> DecodeSlots:
+    """The slots of a decode step at ``pos`` (B,) tokens already in a cache
+    of ``cache_len`` slots; ``window`` (or the config's) makes it a ring."""
+    w = window or cfg.attention_window
+    slot = (torch.remainder(pos, cache_len) if w
+            else torch.clamp(pos, max=cache_len - 1))
+    valid = cache_positions(cfg.replace(attention_window=w), cache_len,
+                            pos + 1)
+    return DecodeSlots(rows=torch.arange(pos.shape[0], device=pos.device),
+                       slot=slot, valid=valid)
+
+
 def cache_positions(cfg: ModelConfig, cache_len: int,
                     pos: torch.Tensor) -> torch.Tensor:
     """valid-slot mask for a decode step at absolute position ``pos``
@@ -144,13 +168,14 @@ def cache_positions(cfg: ModelConfig, cache_len: int,
 # ---------------------------------------------------------------------------
 
 def attention_forward(p, cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor, *,
+                      rope: Optional[RopeTables], *,
                       num_kv: Optional[int] = None,
                       window: int = 0,
                       cache_len: Optional[int] = None
                       ) -> Tuple[torch.Tensor, KVCache]:
     """Causal self-attention over a whole sequence. Returns output and the
-    cache that a subsequent decode would consume (prefill contract)."""
+    cache that a subsequent decode would consume (prefill contract).
+    ``rope``: the tables of the tokens' positions (``model_rope``)."""
     num_kv = cfg.num_kv_heads if num_kv is None else num_kv
     B, S, _ = x.shape
     if (cfg.ref_attention == "chunked" and S >= CHUNKED_ATTENTION_MIN_SEQ
@@ -160,8 +185,8 @@ def attention_forward(p, cfg: ModelConfig, x: torch.Tensor,
             "repro.models.attention.flash_attention_jnp) is not ported yet")
     q, k, v = _project_qkv(p, cfg, x, num_kv)
     if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, rope)
+        k = apply_rope(k, rope)
     if window:
         # banded causal mask: j in (i-window, i]
         i = torch.arange(S, device=x.device)[:, None]
@@ -205,39 +230,33 @@ def _cache_from_prefill(cfg: ModelConfig, k, v, window: int,
 
 
 def _write_cache(cfg: ModelConfig, cache_arr: torch.Tensor,
-                 new_vals: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+                 new_vals: torch.Tensor, slots: DecodeSlots) -> torch.Tensor:
     """Write each row's new token into its slot, in place. ``kv_update``
     "onehot" and "scatter" give equal values in the JAX package (the one-hot
     blend of a zero-initialised cache is exact), so both are this one slot
-    write here. cache (B,T,...), new (B,1,...), slot (B,)."""
+    write here. cache (B,T,...), new (B,1,...)."""
     if cfg.kv_update not in ("onehot", "scatter"):
         raise ValueError(f"unknown kv_update {cfg.kv_update!r}")
-    rows = torch.arange(cache_arr.shape[0], device=cache_arr.device)
-    cache_arr[rows, slot] = new_vals[:, 0].to(cache_arr.dtype)
+    cache_arr[slots.rows, slots.slot] = new_vals[:, 0].to(cache_arr.dtype)
     return cache_arr
 
 
 def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: KVCache,
-                     pos: torch.Tensor, *,
-                     num_kv: Optional[int] = None,
-                     window: int = 0) -> Tuple[torch.Tensor, KVCache]:
-    """One-token decode. x: (B,1,d_model); pos: (B,) tokens-so-far. The
-    cache is written in place and returned."""
+                     slots: DecodeSlots, rope: Optional[RopeTables], *,
+                     num_kv: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode. x: (B,1,d_model); ``slots``: the step's
+    ``decode_slots``; ``rope``: the tables of its positions. The cache is
+    written in place and returned."""
     num_kv = cfg.num_kv_heads if num_kv is None else num_kv
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x, num_kv)
     if cfg.use_rope:
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k = apply_rope(k, pos[:, None], cfg.rope_theta)
-    w = window or cfg.attention_window
-    cache_len = cache.k.shape[1]
-    slot = (torch.remainder(pos, cache_len) if w
-            else torch.clamp(pos, max=cache_len - 1))
-    k_new = _write_cache(cfg, cache.k, k, slot)
-    v_new = _write_cache(cfg, cache.v, v, slot)
-    valid = cache_positions(cfg.replace(attention_window=w), cache_len,
-                            pos + 1)
-    out = decode_attention(q, k_new, v_new, valid,
+        q = apply_rope(q, rope)
+        k = apply_rope(k, rope)
+    k_new = _write_cache(cfg, cache.k, k, slots)
+    v_new = _write_cache(cfg, cache.v, v, slots)
+    out = decode_attention(q, k_new, v_new, slots.valid,
                            use_pallas=cfg.use_pallas)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
     y = out @ p["wo"].to(out.dtype)

@@ -7,7 +7,12 @@ With ``cfg.use_pallas`` the SSD scan and the RG-LRU block's gates and
 recurrence run the hand-written Hopper kernels of ``repro_torch.kernels``
 (on a CPU tensor, their plain versions). The fp32 gate products of the
 RG-LRU block are full fp32 matrix products: PyTorch's default keeps TF32
-off for them.
+off for them. Their weights are held in fp32 (``GATES_FP32``): the init
+draws them in the weight dtype and widens them once, which is exact, so
+the products are those of the widened weight in the JAX package.
+
+Given a state, a block writes its new recurrent state into that state's
+tensors and returns it, so a cache keeps its addresses from step to step.
 """
 from __future__ import annotations
 
@@ -68,6 +73,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 # RG-LRU (Real-Gated Linear Recurrent Unit): RecurrentGemma / Griffin
 # ---------------------------------------------------------------------------
 
+#: the RG-LRU block's weights that only fp32 products use: held in fp32
+GATES_FP32 = ("w_input_gate", "w_rec_gate")
+
+
 class RGLRUState(NamedTuple):
     h: torch.Tensor         # (B, lru_width) recurrent state, fp32
     conv: torch.Tensor      # (B, k-1, lru_width) conv tail
@@ -83,8 +92,8 @@ def init_rglru_block(gen: torch.Generator, cfg: ModelConfig):
         "w_y": dense_init(gen, (cfg.d_model, W), dt),  # multiplicative branch
         "conv_w": dense_init(gen, (cfg.conv_kernel, W), dt, scale=0.5),
         "lambda_param": lam,
-        "w_input_gate": dense_init(gen, (W, W), dt, scale=0.02),
-        "w_rec_gate": dense_init(gen, (W, W), dt, scale=0.02),
+        "w_input_gate": dense_init(gen, (W, W), dt, scale=0.02).float(),
+        "w_rec_gate": dense_init(gen, (W, W), dt, scale=0.02).float(),
         "w_out": dense_init(gen, (W, cfg.d_model), dt),
     }
 
@@ -130,7 +139,11 @@ def rglru_block_forward(p, cfg: ModelConfig, x: torch.Tensor,
     out, h_last = gated_scan(xc32, pre_i, pre_r, p["lambda_param"], pre_y,
                              h0)
     y = out @ p["w_out"].to(x.dtype)
-    return y, RGLRUState(h=h_last, conv=new_tail)
+    if state is None:
+        return y, RGLRUState(h=h_last, conv=new_tail)
+    state.h.copy_(h_last)
+    state.conv.copy_(new_tail)
+    return y, state
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int,
@@ -248,7 +261,8 @@ def ssd_block_forward(p, cfg: ModelConfig, u: torch.Tensor,
                       state: Optional[SSDState] = None
                       ) -> Tuple[torch.Tensor, SSDState]:
     """Full Mamba-2 block. u: (B,S,d_model). S==1 with a state: the
-    recurrent decode step (plain PyTorch, as in the JAX package)."""
+    recurrent decode step (plain PyTorch, as in the JAX package), which
+    scales and adds into ``state.ssm`` itself."""
     Bsz, S, _ = u.shape
     d_in = cfg.d_inner
     G, N, H, P = (cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads,
@@ -271,11 +285,11 @@ def ssd_block_forward(p, cfg: ModelConfig, u: torch.Tensor,
         Cs = torch.repeat_interleave(Cmat[:, 0], rep, dim=1)
         upd = dt[:, 0, :, None, None] * torch.einsum(
             "bhn,bhp->bhpn", Bs, x[:, 0])
-        new_state = dA * state.ssm + upd
-        y = torch.einsum("bhn,bhpn->bhp", Cs, new_state)
+        # dA * S + upd, rounded as the JAX package's functional form
+        final = state.ssm.mul_(dA).add_(upd)
+        y = torch.einsum("bhn,bhpn->bhp", Cs, final)
         y = y + p["D"][None, :, None] * x[:, 0]
         y = y[:, None]                                       # (B,1,H,P)
-        final = new_state
     else:
         # a prefill starts from a zero state, as in the JAX package
         y, final = ssd_chunked(x, dt, A, Bmat, Cmat, cfg.ssm_chunk,
@@ -287,7 +301,12 @@ def ssd_block_forward(p, cfg: ModelConfig, u: torch.Tensor,
     y = y * F.silu(z.float())
     y = rms_norm(y.to(u.dtype), p["norm_w"], cfg.norm_eps)
     out = y @ p["w_out"].to(u.dtype)
-    return out, SSDState(ssm=final, conv=new_tail)
+    if state is None:
+        return out, SSDState(ssm=final, conv=new_tail)
+    if S > 1:
+        state.ssm.copy_(final)
+    state.conv.copy_(new_tail)
+    return out, state
 
 
 def init_ssd_state(cfg: ModelConfig, batch: int,

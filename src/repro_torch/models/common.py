@@ -12,7 +12,7 @@ applied as ``x @ W`` and (B, S, H, D) attention tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -193,6 +193,30 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def tree_tensors(tree) -> Iterator[torch.Tensor]:
+    """The tensors of a params or cache tree (nested dicts, lists and
+    named tuples), in order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_tensors(v)
+
+
+def tree_clone(tree):
+    """A copy of a cache tree, its containers alike, its tensors cloned."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_clone(v) for v in tree]
+    return type(tree)(*(tree_clone(v) for v in tree))   # a named tuple
+
+
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated-normal fan-in init (LeCun-ish), matching llama-family.
@@ -262,16 +286,32 @@ def rope_frequencies(head_dim: int, theta: float,
     return 1.0 / (theta ** exponents)                     # (head_dim//2,)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq).
-    Split-half layout: the first and second halves of head_dim rotate
-    together (not interleaved pairs)."""
-    head_dim = x.shape[-1]
-    freqs = rope_frequencies(head_dim, theta, device=x.device)
+class RopeTables(NamedTuple):
+    """sin and cos of each position's angles, (..., seq, 1, head_dim//2):
+    what ``apply_rope`` rotates by. A model builds them once a forward or
+    decode step and hands them to every attention layer."""
+    sin: torch.Tensor
+    cos: torch.Tensor
+
+
+def model_rope(cfg: ModelConfig,
+               positions: torch.Tensor) -> Optional[RopeTables]:
+    """The tables of ``positions`` (broadcastable to (..., seq)) that a
+    model's attention layers share, None without rope."""
+    if not cfg.use_rope:
+        return None
+    freqs = rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                             device=positions.device)
     angles = positions[..., :, None].float() * freqs      # (..., seq, hd/2)
-    sin = torch.sin(angles)[..., :, None, :]              # (..., seq, 1, hd/2)
-    cos = torch.cos(angles)[..., :, None, :]
+    return RopeTables(sin=torch.sin(angles)[..., :, None, :],
+                      cos=torch.cos(angles)[..., :, None, :])
+
+
+def apply_rope(x: torch.Tensor, tables: RopeTables) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim), rotated by ``tables``
+    (``model_rope`` of its positions). Split-half layout: the first and
+    second halves of head_dim rotate together (not interleaved pairs)."""
+    sin, cos = tables
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -8,7 +8,10 @@ as Mamba's ``mixer`` included) and ``units`` of ``HybridLM`` (a dict of
 (dense) and ``tail`` (hybrid) are lists of unstacked layers. The port keeps
 a list of per-layer (or per-unit) dicts for a stacked key, and the lists as
 they are. Matrices stay (in, out) in both, and every leaf keeps its dtype
-(Mamba's ``A_log``, ``D`` and ``dt_bias`` are fp32 in any config).
+(Mamba's ``A_log``, ``D`` and ``dt_bias`` are fp32 in any config), but for
+the RG-LRU gate weights, which only fp32 products use: they are widened to
+fp32 once here, as the port's own init holds them
+(``repro_torch.models.blocks.GATES_FP32``). Widening is exact.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.models.blocks import GATES_FP32
 from repro_torch.models.common import resolve_device
 
 
@@ -32,16 +36,17 @@ def to_tensor(a, device="cuda") -> torch.Tensor:
     return t.to(device)
 
 
-def _map(tree, fn):
+def _map(tree, fn, key=None):
+    """fn(leaf, the key of the dict that holds it) over a tree."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
+        return {k: _map(v, fn, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
+        return [_map(v, fn, key) for v in tree]
+    return fn(tree, key)
 
 
 def _unstack(tree, i):
-    return _map(tree, lambda a: a[i])
+    return _map(tree, lambda a, _: a[i])
 
 
 def _num_layers(tree) -> int:
@@ -59,8 +64,9 @@ def from_jax_params(tree: Any, device="cuda") -> Any:
     raises; pass ``device="cpu"`` for the plain PyTorch path."""
     device = resolve_device(device)
 
-    def conv(a):
-        return to_tensor(a, device)
+    def conv(a, key):
+        t = to_tensor(a, device)
+        return t.float() if key in GATES_FP32 else t
 
     out = {}
     for k, v in tree.items():
@@ -68,5 +74,5 @@ def from_jax_params(tree: Any, device="cuda") -> Any:
             out[k] = [_map(_unstack(v, i), conv)
                       for i in range(_num_layers(v))]
         else:
-            out[k] = _map(v, conv)
+            out[k] = _map(v, conv, k)
     return out

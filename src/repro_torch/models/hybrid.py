@@ -14,8 +14,9 @@ Params are a dict: ``embed``, ``final_norm``, ``lm_head`` unless tied,
 tree stacks them; see ``repro_torch.models.convert``), and ``tail``, a list
 of layer dicts. The cache is ``{"units": [{"l0": RGLRUState, "l1":
 RGLRUState, "l2": KVCache}, ...], "tail": [RGLRUState, ...]}``;
-``decode_step`` writes each KV cache in place and returns new recurrent
-states.
+``decode_step`` writes each KV cache and recurrent state in place and
+returns the cache it was given. The rope tables and the ring's slots are
+built once a forward or step and shared by the attention layers.
 
 A layer's last residual add is left to the next layer's first norm, or the
 final norm, which takes it in (``add_rms_norm``), as in the dense model.
@@ -28,7 +29,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
-from repro_torch.models.common import ModelConfig, add_rms_norm, dense_init
+from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
+                                       model_rope)
 
 
 class HybridLM:
@@ -72,27 +74,28 @@ class HybridLM:
         return params
 
     # ------------------------------------------------------------------
-    def _layer_full(self, lp, kind, x, pending, positions):
+    def _layer_full(self, lp, kind, x, pending, rope):
         """(x, pending) in and out: the layer's input is x + pending."""
         cfg = self.cfg
         x, h = add_rms_norm(x, pending, lp["temporal_norm"], cfg.norm_eps,
                             cfg.use_pallas)
         if kind == "attn":
-            y, cache = attn.attention_forward(
-                lp["mixer"], cfg, h, positions, window=cfg.local_window)
+            y, cache = attn.attention_forward(lp["mixer"], cfg, h, rope,
+                                              window=cfg.local_window)
         else:
             y, cache = blocks.rglru_block_forward(lp["mixer"], cfg, h)
         x, h = add_rms_norm(x, y, lp["mlp_norm"], cfg.norm_eps,
                             cfg.use_pallas)
         return x, blocks.ffn_forward(lp["mlp"], cfg, h), cache
 
-    def _layer_decode(self, lp, kind, x, pending, cache, pos):
+    def _layer_decode(self, lp, kind, x, pending, cache, slots, rope):
+        """Writes the layer's cache in place and returns it as ``nc``."""
         cfg = self.cfg
         x, h = add_rms_norm(x, pending, lp["temporal_norm"], cfg.norm_eps,
                             cfg.use_pallas)
         if kind == "attn":
-            y, nc = attn.attention_decode(lp["mixer"], cfg, h, cache, pos,
-                                          window=cfg.local_window)
+            y, nc = attn.attention_decode(lp["mixer"], cfg, h, cache, slots,
+                                          rope)
         else:
             y, nc = blocks.rglru_block_forward(lp["mixer"], cfg, h,
                                                state=cache)
@@ -114,16 +117,16 @@ class HybridLM:
 
     def _run(self, params, x, positions):
         unit_caches, pending = [], None
+        rope = model_rope(self.cfg, positions)
         for up in params["units"]:
             caches = {}
             for i, kind in enumerate(self.pattern):
                 x, pending, caches[f"l{i}"] = self._layer_full(
-                    up[f"l{i}"], kind, x, pending, positions)
+                    up[f"l{i}"], kind, x, pending, rope)
             unit_caches.append(caches)
         tail_caches = []
         for lp in params["tail"]:
-            x, pending, c = self._layer_full(lp, "rec", x, pending,
-                                             positions)
+            x, pending, c = self._layer_full(lp, "rec", x, pending, rope)
             tail_caches.append(c)
         return x, pending, {"units": unit_caches, "tail": tail_caches}
 
@@ -163,19 +166,19 @@ class HybridLM:
 
     def decode_step(self, params, token, cache, pos):
         """token: (B,1) int; pos: (B,) tokens already in cache. Writes the
-        KV caches in place; returns the logits and the new cache."""
+        KV caches and recurrent states in place; returns the logits and
+        ``cache``."""
+        cfg = self.cfg
         x = self._embed(params, token)
-        new_units, pending = [], None
+        pending = None
+        slots = attn.decode_slots(cfg, cfg.local_window, pos,
+                                  window=cfg.local_window)
+        rope = model_rope(self.cfg, pos[:, None])
         for up, uc in zip(params["units"], cache["units"]):
-            ncs = {}
             for i, kind in enumerate(self.pattern):
-                x, pending, ncs[f"l{i}"] = self._layer_decode(
-                    up[f"l{i}"], kind, x, pending, uc[f"l{i}"], pos)
-            new_units.append(ncs)
-        new_tail = []
+                x, pending, _ = self._layer_decode(
+                    up[f"l{i}"], kind, x, pending, uc[f"l{i}"], slots, rope)
         for lp, c in zip(params["tail"], cache["tail"]):
-            x, pending, nc = self._layer_decode(lp, "rec", x, pending, c,
-                                                pos)
-            new_tail.append(nc)
-        return self._unembed(params, x, pending), {"units": new_units,
-                                                   "tail": new_tail}
+            x, pending, _ = self._layer_decode(lp, "rec", x, pending, c,
+                                               slots, rope)
+        return self._unembed(params, x, pending), cache

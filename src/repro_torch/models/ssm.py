@@ -7,8 +7,9 @@ dict: ``embed`` (V, d), ``final_norm``, ``lm_head`` (d, V) unless the
 embeddings are tied, and ``layers``, a list of ``{"norm", "mixer"}`` dicts
 (the JAX tree stacks them; see ``repro_torch.models.convert``). The cache is
 an ``SSDState`` of tensors stacked over layers, (L, B, H, P, N) and
-(L, B, k-1, conv_dim), as in the JAX package; ``decode_step`` returns a new
-one.
+(L, B, k-1, conv_dim), as in the JAX package; ``decode_step`` writes the
+new states into it in place and returns it, holding the values that the JAX
+package's functional step returns.
 
 A layer's residual add is left to the next layer's norm, or the final norm,
 which takes it in (``add_rms_norm``), as in the dense model.
@@ -89,18 +90,18 @@ class MambaLM:
 
     def decode_step(self, params, token, cache, pos):
         """token: (B,1) int; pos: (B,) (unused: the state carries the
-        position). Returns the logits and a new cache."""
+        position). Writes the new states into ``cache`` in place; returns
+        the logits and ``cache``."""
         cfg = self.cfg
         x = self._embed(params, token)
-        states, y = [], None
+        y = None
         for i, lp in enumerate(params["layers"]):
             x, r = add_rms_norm(x, y, lp["norm"], cfg.norm_eps,
                                 cfg.use_pallas)
-            y, st = blocks.ssd_block_forward(
+            y, _ = blocks.ssd_block_forward(
                 lp["mixer"], cfg, r,
                 state=blocks.SSDState(ssm=cache.ssm[i], conv=cache.conv[i]))
-            states.append(st)
-        return self._unembed(params, x, y), _stack(states)
+        return self._unembed(params, x, y), cache
 
 
 def _stack(states) -> blocks.SSDState:

@@ -17,6 +17,9 @@ KVCache}`` with (L, B, T, Hkv, D) tensors, and ``decode_step`` updates it in
 place: it writes each layer's new K/V into the cache it was given and
 returns that same cache.
 
+The rope tables and, in a decode step, the cache slots written and read
+are built once a forward or step and shared by every layer.
+
 A layer leaves its last residual add to the norm after it: it returns
 ``(x, pending)``, its output being ``x + pending``, and the next layer's
 first norm, or the final norm, takes the add in (``add_rms_norm``: one
@@ -31,7 +34,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
-from repro_torch.models.common import ModelConfig, add_rms_norm, dense_init
+from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
+                                       model_rope)
 
 
 class DecoderOnlyLM:
@@ -75,24 +79,24 @@ class DecoderOnlyLM:
     # ------------------------------------------------------------------
     # layer bodies
     # ------------------------------------------------------------------
-    def _layer_full(self, lp, x, pending, positions, cache_len=None):
+    def _layer_full(self, lp, x, pending, rope, cache_len=None):
         """(x, pending) in and out: the layer's input is x + pending."""
         cfg = self.cfg
         x, h = add_rms_norm(x, pending, lp["attn_norm"], cfg.norm_eps,
                             cfg.use_pallas)
         a, cache = attn.attention_forward(
-            lp["attn"], cfg, h, positions, window=cfg.attention_window,
+            lp["attn"], cfg, h, rope, window=cfg.attention_window,
             cache_len=cache_len)
         x, h = add_rms_norm(x, a, lp["ffn_norm"], cfg.norm_eps,
                             cfg.use_pallas)
         return x, blocks.ffn_forward(lp["ffn"], cfg, h), cache
 
-    def _layer_decode(self, lp, x, pending, cache, pos):
+    def _layer_decode(self, lp, x, pending, cache, slots, rope):
         cfg = self.cfg
         x, h = add_rms_norm(x, pending, lp["attn_norm"], cfg.norm_eps,
                             cfg.use_pallas)
-        a, cache = attn.attention_decode(
-            lp["attn"], cfg, h, cache, pos, window=cfg.attention_window)
+        a, cache = attn.attention_decode(lp["attn"], cfg, h, cache, slots,
+                                         rope)
         x, h = add_rms_norm(x, a, lp["ffn_norm"], cfg.norm_eps,
                             cfg.use_pallas)
         return x, blocks.ffn_forward(lp["ffn"], cfg, h), cache
@@ -114,8 +118,9 @@ class DecoderOnlyLM:
     def _run_stack(self, params, x, positions, *, collect_cache: bool,
                    cache_len=None):
         caches, pending = [], None
+        rope = model_rope(self.cfg, positions)
         for lp in params["layers"]:
-            x, pending, c = self._layer_full(lp, x, pending, positions,
+            x, pending, c = self._layer_full(lp, x, pending, rope,
                                              cache_len=cache_len)
             if collect_cache:
                 caches.append(c)
@@ -158,9 +163,11 @@ class DecoderOnlyLM:
         new K/V into ``cache`` in place and returns it."""
         x = self._embed(params, token)
         stacked, pending = cache["scanned"], None
+        slots = attn.decode_slots(self.cfg, stacked.k.shape[2], pos)
+        rope = model_rope(self.cfg, pos[:, None])
         for i, lp in enumerate(params["layers"]):
             x, pending, _ = self._layer_decode(
                 lp, x, pending, attn.KVCache(k=stacked.k[i], v=stacked.v[i]),
-                pos)
+                slots, rope)
         logits = self._unembed(params, x, pending)
         return logits, cache

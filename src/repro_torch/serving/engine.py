@@ -4,9 +4,9 @@ backends and a simulated clock.
 ``SimBackend`` and ``InferenceEngine`` are copies of
 ``repro.serving.engine``'s, float-op for float-op. ``TorchBackend`` takes
 the place of ``JaxBackend``: it runs the port's model on the card (through
-the Hopper kernels) per iteration. Both backends expose identical
-(latency, energy, power) effects, so AGFT drives either transparently
-through ``set_frequency``.
+the Hopper kernels) per iteration, each step a CUDA graph's replay. Both
+backends expose identical (latency, energy, power) effects, so AGFT drives
+either transparently through ``set_frequency``.
 
 The engine is a discrete-event process: future arrivals live in a heap
 (O(log n) ``submit``, no re-sorts), and ``next_event_time`` tells the
@@ -17,6 +17,7 @@ reference, but the network model that feeds it is not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import heapq
 import itertools
 import time
@@ -27,9 +28,12 @@ import torch
 
 from repro_torch.energy import (A6000, H100, CostModel, DVFSModel,
                                 HardwareSpec)
-from repro_torch.models.common import ModelConfig, resolve_device
+from repro_torch.kernels import build as build_kernels
+from repro_torch.models.common import (ModelConfig, resolve_device,
+                                       tree_tensors)
 from repro_torch.models.registry import build_model
 from repro_torch.serving.driver import EngineNode, drive
+from repro_torch.serving.graphs import StepGraph
 from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.metrics import MetricsExporter
 from repro_torch.serving.request import Request
@@ -175,44 +179,61 @@ class SimBackend:
         return t, p * t, p
 
 
+#: the prefill lengths a backend runs: powers of two up to 64, as
+#: ``JaxBackend`` buckets them to bound its traces
+PREFILL_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+
 class TorchBackend:
     """Real-execution backend: runs the port's model on the card per
     iteration and prices energy off measured wall time, the counterpart of
     ``repro.serving.engine.JaxBackend`` with the same behaviour:
 
-    - prefill runs ``forward`` on zero tokens, padded to a power of two of
-      at most 64, and does not fill the decode cache;
+    - prefill runs ``forward`` on zero tokens, padded to a bucket of
+      ``PREFILL_BUCKETS``, and does not fill the decode cache;
     - decode runs ``decode_step`` at a fixed ``max_batch`` against a cache
-      of ``cache_len`` slots, with ``pos`` clamped to ``cache_len - 1``,
-      and keeps the cache it returns (the dense model's is the same one,
-      written in place; the SSM and hybrid states come back as new
-      tensors);
+      of ``cache_len`` slots, with ``pos`` clamped to ``cache_len - 1``;
+      every model writes its cache in place, so ``cache`` keeps its
+      tensors from step to step;
     - energy uses ``JaxBackend``'s DVFS formula on the wall time taken
       after ``torch.cuda.synchronize()``; clock control and power stay
       simulated.
+
+    Where ``JaxBackend`` jit-compiles its two steps, this backend captures
+    them as CUDA graphs (``repro_torch.serving.graphs.StepGraph``): on the
+    card, ``__init__`` builds the kernels and captures the decode step and
+    one forward a prefill bucket, all on static inputs (the zero tokens,
+    ``pos``, the cache) in one shared memory pool, and ``execute`` writes
+    ``pos`` through a pinned host buffer and replays them. A failed capture
+    raises. On the CPU, the caller's explicit choice, the same step bodies
+    run eagerly.
 
     The model is built with ``cfg.replace(use_pallas=True)``, so on the card
     every kernel of the model's path (RMSNorm, prefill and decode
     attention, the SSD and RG-LRU scans) goes through the hand-written
     Hopper kernels (on the CPU, their plain versions).
-    Weights are random, drawn from ``seed``. There is no
+    Weights are random, drawn from ``seed``, unless ``params`` gives them
+    (on the backend's device; e.g. converted from the JAX package's by
+    ``repro_torch.models.convert.from_jax_params``). There is no
     ``execute_phased``: the engine runs a phased iteration at the dominant
     phase's clock. ``prefill_steps`` and ``decode_steps`` count the
     forwards and decode steps run; ``prefill_lengths`` keeps each forward's
-    padded length, and ``decode_wall_s`` the wall time of each decode-only
-    iteration.
+    padded length, ``decode_wall_s`` the wall time of each decode-only
+    iteration, and ``logits`` the last decode step's logits.
     """
 
     def __init__(self, cfg: ModelConfig, hardware: HardwareSpec = H100,
                  max_batch: int = 8, cache_len: int = 256, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", params=None):
         self.device = resolve_device(device)
         self.cfg = cfg.replace(use_pallas=True)
         self.dvfs = DVFSModel(hardware)
         self.model = build_model(self.cfg)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        with torch.no_grad():
-            self.params = self.model.init(gen)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            with torch.no_grad():
+                params = self.model.init(gen)
+        self.params = params
         self.max_batch = max_batch
         self.cache_len = cache_len
         self.cache = self.model.init_cache(max_batch, cache_len,
@@ -220,6 +241,48 @@ class TorchBackend:
         self.prefill_lengths: List[int] = []
         self.decode_steps = 0
         self.decode_wall_s: List[float] = []
+        self.logits: Optional[torch.Tensor] = None
+        # the steps' static inputs
+        zeros = dict(dtype=torch.long, device=self.device)
+        self.token = torch.zeros((max_batch, 1), **zeros)
+        self.pos = torch.ones((max_batch,), **zeros)
+        self._prefill_tokens = {n: torch.zeros((1, n), **zeros)
+                                for n in PREFILL_BUCKETS}
+        on_card = self.device.type == "cuda"
+        self._pos_host = (torch.ones((max_batch,), dtype=torch.long,
+                                     pin_memory=True)
+                          if on_card else self.pos)
+        pool = None
+        if on_card:
+            build_kernels()
+            pool = torch.cuda.graph_pool_handle()
+        with torch.no_grad():
+            self.decode_graph = StepGraph(self._decode_body, self.device,
+                                          pool, "decode_step")
+            self.prefill_graphs = {
+                n: StepGraph(functools.partial(self._prefill_body, n),
+                             self.device, pool, f"forward at {n} tokens")
+                for n in PREFILL_BUCKETS}
+        if on_card:
+            # the warm-ups stepped the cache: start it from zeros again
+            for t in tree_tensors(self.cache):
+                t.zero_()
+            torch.cuda.synchronize(self.device)
+
+    def _decode_body(self) -> torch.Tensor:
+        """One decode step on the static inputs: what the decode graph
+        captures. Writes the cache in place; returns the logits."""
+        return self.model.decode_step(self.params, self.token, self.cache,
+                                      self.pos)[0]
+
+    def _prefill_body(self, n: int) -> torch.Tensor:
+        """The forward of an ``n``-token bucket's zero tokens: what its
+        graph captures."""
+        return self.model.forward(self.params, self._prefill_tokens[n])[0]
+
+    @property
+    def graphs(self) -> List[StepGraph]:
+        return [self.decode_graph, *self.prefill_graphs.values()]
 
     @property
     def prefill_steps(self) -> int:
@@ -239,20 +302,16 @@ class TorchBackend:
                 # JaxBackend does to bound its traces
                 n = min(plan.prefill_tokens, 64)
                 n = 1 << (max(n, 1) - 1).bit_length()
-                toks = torch.zeros((1, n), dtype=torch.long,
-                                   device=self.device)
-                self.model.forward(self.params, toks)
+                self.prefill_graphs[n]()
                 self.prefill_lengths.append(n)
             if plan.decode:
                 b = self.max_batch
-                tok = torch.zeros((b, 1), dtype=torch.long,
-                                  device=self.device)
-                pos = torch.tensor(
+                self._pos_host.numpy()[:] = np.minimum(
                     [r.context_len for r in plan.decode[:b]]
-                    + [1] * max(0, b - len(plan.decode)),
-                    dtype=torch.long).clamp_(max=self.cache_len - 1)
-                _, self.cache = self.model.decode_step(
-                    self.params, tok, self.cache, pos.to(self.device))
+                    + [1] * max(0, b - len(plan.decode)), self.cache_len - 1)
+                if self._pos_host is not self.pos:
+                    self.pos.copy_(self._pos_host, non_blocking=True)
+                self.logits = self.decode_graph()
                 self.decode_steps += 1
         self._sync()
         wall = time.perf_counter() - t0

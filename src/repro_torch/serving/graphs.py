@@ -1,0 +1,86 @@
+"""CUDA graphs, the port's counterpart of ``jax.jit``: a step captured once
+on the card and replayed as one launch from the host.
+
+``StepGraph(fn, device)`` takes a callable of no arguments. Its inputs are
+tensors it closes over, which the caller writes in place between calls;
+its output is the tensor (or tuple of tensors) it returns, which every
+replay overwrites. On a CUDA device the constructor runs ``fn`` once on a
+side stream (the warm-up that ``torch.cuda.graphs`` asks for: it also loads
+each kernel's library and fills the launch plans' caches, so that no build,
+``dlopen`` or attribute query happens inside the capture), then captures it
+with ``torch.cuda.graph``. A failed capture raises; nothing falls back to
+running ``fn`` eagerly on the card. On the CPU, which a caller chooses
+explicitly, a call runs ``fn`` itself.
+
+A replay runs no kernel wrapper, so no launch count moves by itself: the
+capture records the counts its wrappers added (and takes them back, since
+a capture launches nothing), and each replay adds them again through
+``repro_torch.kernels.add_launch_counts``. ``launch_counts()`` thus counts
+every launch that ran, eager or replayed.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.kernels import add_launch_counts, launch_counts
+
+
+class StepGraph:
+    """``fn`` as a CUDA graph on a CUDA ``device``, eager on the CPU.
+
+    ``pool`` is a memory pool shared with other graphs
+    (``torch.cuda.graph_pool_handle()``): their outputs then stay valid
+    only until the next replay of any graph of the pool. After capture,
+    ``launches`` holds the kernel launches of one replay, ``capture_s``
+    the wall time of the warm-up and the capture, and ``memory_bytes`` the
+    device memory that the capture reserved for the graph
+    (``torch.cuda.memory_reserved``)."""
+
+    def __init__(self, fn: Callable, device: torch.device,
+                 pool=None, name: str = "step"):
+        self.fn = fn
+        self.name = name
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.output = None
+        self.launches: Dict[str, int] = {}
+        self.capture_s = 0.0
+        self.memory_bytes = 0
+        if device.type == "cuda":
+            self._capture(device, pool)
+
+    def _capture(self, device: torch.device, pool) -> None:
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self.fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()      # as the capture's own entry does
+        reserved = torch.cuda.memory_reserved(device)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                self.output = self.fn()
+            torch.cuda.synchronize(device)
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing {self.name} as a CUDA graph failed: {e}") from e
+        after = launch_counts()
+        self.launches = {k: n - before[k] for k, n in after.items()
+                         if n != before[k]}
+        add_launch_counts(self.launches, -1)    # the capture launched nothing
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+        self.memory_bytes = torch.cuda.memory_reserved(device) - reserved
+
+    def __call__(self):
+        if self.graph is None:
+            return self.fn()
+        self.graph.replay()
+        add_launch_counts(self.launches)
+        return self.output

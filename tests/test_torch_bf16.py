@@ -1,6 +1,7 @@
 """The port's bf16 path, the dtype it serves in, against the JAX package's,
 on the CPU: one Mamba-2 block and one RG-LRU block, and the reduced
-``MambaLM`` and ``HybridLM`` on the JAX init's bf16 weights (converted by
+``MambaLM``, ``HybridLM`` and dense ``DecoderOnlyLM`` (tinyllama-1.1b and
+llama3-3b) on the JAX init's bf16 weights (converted by
 ``repro_torch.models.convert``), with ``use_pallas`` off and on.
 
 Two bf16 paths differ wherever one rounding flips, and the flips grow
@@ -41,6 +42,7 @@ BF16_TRACK = 1.25
 BF16_VS_JAX = 1.5
 
 SSM, HYBRID = "mamba2-1.3b", "recurrentgemma-9b"
+TINY, LLAMA = "tinyllama-1.1b", "llama3-3b"
 # (arch, the JAX block's init and forward, the port's forward and state)
 BLOCKS = {
     SSM: (jblocks.init_ssd_block, jblocks.ssd_block_forward,
@@ -113,13 +115,14 @@ def test_bf16_block_matches_jax(arch, use_pallas):
 @pytest.mark.parametrize("arch,num_layers,use_pallas", [
     (SSM, 2, False), (SSM, 2, True), (SSM, 8, True),
     (HYBRID, 3, False), (HYBRID, 3, True), (HYBRID, 5, False),
-    (HYBRID, 5, True)])
+    (HYBRID, 5, True), (TINY, 2, False), (TINY, 2, True), (LLAMA, 2, False),
+    (LLAMA, 2, True)])
 def test_bf16_model_tracks_jax(arch, num_layers, use_pallas):
     """The reduced model in bf16 on the JAX init's bf16 weights: forward,
     prefill and four decode steps against JAX's bf16 and fp32 runs on the
     same weights. Mamba-2 at 2 layers and at 8, where the drift has grown;
     the hybrid at 3 (no tail) and 5 (a tail of two), its prefill of 40
-    tokens past the reduced window of 32."""
+    tokens past the reduced window of 32; the dense models at 2."""
     kw = dict(num_layers=num_layers, use_pallas=use_pallas)
     jm = jax_build_model(jax_get_config(arch).reduced().replace(**kw,
                                                                 **BF16))

@@ -13,6 +13,7 @@ output too); 5e-4 for a small fp32
 model through the kernels against the same model through the plain
 versions. A bf16 output must also lie within a relative L2 of 1e-3 of the
 plain version's, as ``chip_smoke.py`` holds it (``BF16_REL_L2``).
+``TorchBackend``'s CUDA graphs must replay their eager steps bit for bit.
 """
 import hashlib
 
@@ -23,12 +24,14 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import (device_launches, launch_counts,
+                                 profile_calls, traced_launches)
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru as lru
 from repro_torch.kernels import rmsnorm as rms
 from repro_torch.kernels import ssd
-from repro_torch.models import build_model
+from repro_torch.models import build_model, tree_clone, tree_tensors
+from repro_torch.serving import TorchBackend
 
 pytestmark = pytest.mark.cuda
 
@@ -571,3 +574,68 @@ def test_kernel_state_models_match_plain(cuda, arch, counts):
         assert after[name] - before[name] == n, name
     np.testing.assert_allclose(dl[:, 0].cpu().numpy(),
                                lk[:, 39].cpu().numpy(), rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# TorchBackend's CUDA graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["llama3-3b", "mamba2-1.3b",
+                                  "recurrentgemma-9b"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_graph_replays_match_eager(cuda, arch, dtype):
+    """The backend's decode graph over four steps of random tokens from a
+    random cache, and each prefill bucket's graph, against the eager step
+    on a clone of the same cache, bit for bit; the hybrid's rows cross its
+    32-slot ring. What the profiler sees one replay of the decode graph
+    and of the largest prefill bucket's launch is what their captures
+    recorded."""
+    cfg = get_config(arch).reduced().replace(dtype=dtype, param_dtype=dtype)
+    if cfg.arch_type == "hybrid":
+        cfg = cfg.replace(num_layers=5)
+    backend = TorchBackend(cfg, max_batch=4, cache_len=64, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for t in tree_tensors(backend.cache):
+        t.normal_(generator=gen)
+    ref = tree_clone(backend.cache)
+    start = [3, 29, 30, 62] if cfg.arch_type == "hybrid" else [3, 20, 40,
+                                                                59]
+    with torch.no_grad():
+        for step in range(4):
+            pos = torch.tensor(start, device=cuda) + step
+            backend.pos.copy_(pos)
+            backend.token.random_(0, cfg.vocab_size, generator=gen)
+            got = backend.decode_graph()
+            want = backend.model.decode_step(backend.params, backend.token,
+                                             ref, pos)[0]
+            assert torch.equal(got, want), step
+            for a, b in zip(tree_tensors(backend.cache),
+                            tree_tensors(ref)):
+                assert torch.equal(a, b), step
+        for n, graph in backend.prefill_graphs.items():
+            toks = torch.zeros((1, n), dtype=torch.long, device=cuda)
+            assert torch.equal(graph(),
+                               backend.model.forward(backend.params,
+                                                     toks)[0]), n
+        for graph in (backend.decode_graph,
+                      backend.prefill_graphs[max(backend.prefill_graphs)]):
+            assert graph.launches, graph.name
+            events, _, _ = profile_calls(graph, 1)
+            assert traced_launches(events) == device_launches(
+                graph.launches), graph.name
+
+
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """A kernel wrapper that raises under capture makes the backend raise:
+    no backend comes back, none that runs eagerly."""
+    real = rms._launch
+
+    def refuses_capture(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused under capture")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(rms, "_launch", refuses_capture)
+    with pytest.raises(RuntimeError, match="CUDA graph failed"):
+        TorchBackend(get_config("tinyllama-1.1b").reduced(), max_batch=2,
+                     cache_len=32, device=cuda)

@@ -33,7 +33,9 @@ from repro_torch.configs import get_config
 from repro_torch.core import AGFTConfig, AGFTTuner
 from repro_torch.energy import A6000
 from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+from repro_torch.models import attention as attn
 from repro_torch.models import blocks, build_model
+from repro_torch.models.common import model_rope
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving import EngineConfig, InferenceEngine, TorchBackend
 from repro_torch.workloads import PROTOTYPES, generate_requests
@@ -120,9 +122,10 @@ def test_rglru_gated_block_matches_jax(S, carried, jax_pallas):
         tstate = blocks.RGLRUState(h=torch.from_numpy(h),
                                    conv=torch.from_numpy(conv))
     for use_pallas in (False, True):
+        # the block writes a given state in place: give each call a copy
         y, st = blocks.rglru_block_forward(
             tp, cfg.replace(use_pallas=use_pallas), torch.from_numpy(x),
-            tstate)
+            tstate and blocks.RGLRUState(*(t.clone() for t in tstate)))
         jy, jst = jblocks.rglru_block_forward(jp, jcfg, jnp.asarray(x),
                                               jstate)
         assert y.shape == (B, S, cfg.d_model)
@@ -213,7 +216,13 @@ def _unfused_run(tm, params, toks, cache=None, pos=None):
     pending add): forward logits, or one decode step's (logits, cache), or
     with neither the prefill's."""
     B, S = toks.shape
-    positions = torch.arange(S)[None].expand(B, S)
+    cfg = tm.cfg
+    if cache is None:
+        rope = model_rope(cfg, torch.arange(S)[None].expand(B, S))
+    else:
+        slots = attn.decode_slots(cfg, cfg.local_window, pos,
+                                  window=cfg.local_window)
+        rope = model_rope(cfg, pos[:, None])
     x = tm._embed(params, toks)
     layers = [(up[f"l{i}"], kind, f"l{i}", u)
               for u, up in enumerate(params["units"])
@@ -222,10 +231,11 @@ def _unfused_run(tm, params, toks, cache=None, pos=None):
     new = {"units": [{} for _ in params["units"]], "tail": []}
     for lp, kind, key, idx in layers:
         if cache is None:
-            x, pending, c = tm._layer_full(lp, kind, x, None, positions)
+            x, pending, c = tm._layer_full(lp, kind, x, None, rope)
         else:
             old = cache["units"][idx][key] if key else cache["tail"][idx]
-            x, pending, c = tm._layer_decode(lp, kind, x, None, old, pos)
+            x, pending, c = tm._layer_decode(lp, kind, x, None, old, slots,
+                                             rope)
         if key:
             new["units"][idx][key] = c
         else:
@@ -358,8 +368,8 @@ def _flat(tree, prefix=""):
 def test_engine_with_real_torch_execution():
     """The copy of ``test_torch_engine`` for RecurrentGemma (with its tail
     of two rec layers): ``TorchBackend`` on the CPU with AGFT attached
-    drains 6 requests; the backend keeps the new states that each decode
-    step returns."""
+    drains 6 requests; each decode step writes the new states into the
+    backend's own cache."""
     cfg = get_config(ARCH).reduced().replace(num_layers=5)
     backend = TorchBackend(cfg, A6000, max_batch=4, cache_len=64,
                            device="cpu")
@@ -385,6 +395,6 @@ def test_engine_with_real_torch_execution():
     # each forward ran at a power-of-two bucket of at most 64 tokens
     assert all(n & (n - 1) == 0 and n <= 64
                for n in backend.prefill_lengths)
-    assert backend.cache["tail"][0] is not tail0
+    assert backend.cache["tail"][0] is tail0
     assert float(backend.cache["tail"][0].h.abs().max()) > 0.0
     assert all(n == 0 for n in launch_counts().values())

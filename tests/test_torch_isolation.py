@@ -38,9 +38,12 @@ assert not bad, bad
 print(" ".join(names))
 '''
 
-# the modules of the SSM and hybrid path, which the walk must reach
+# the modules of the SSM and hybrid path, the CUDA graphs and the baseline
+# policies, which the walk must reach
 PATH_MODULES = {"repro_torch.kernels.ssd", "repro_torch.kernels.rglru",
-                "repro_torch.models.ssm", "repro_torch.models.hybrid"}
+                "repro_torch.models.ssm", "repro_torch.models.hybrid",
+                "repro_torch.serving.graphs", "repro_torch.policies.fixed",
+                "repro_torch.policies.rules"}
 
 
 def _sources():

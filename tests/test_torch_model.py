@@ -24,6 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model
 from repro_torch.models.attention import init_kv_cache
+from repro_torch.models.common import model_rope
 from repro_torch.models.convert import from_jax_params
 
 VARIANTS = {
@@ -96,14 +97,18 @@ def _unfused_run(tm, params, toks, cache=None, pos=None, max_len=None):
     B, S = toks.shape
     x = tm._embed(params, toks)
     caches = []
+    if cache is not None:
+        st = cache["scanned"]
+        slots = attn.decode_slots(tm.cfg, st.k.shape[2], pos)
+        rope = model_rope(tm.cfg, pos[:, None])
+    else:
+        rope = model_rope(tm.cfg, torch.arange(S)[None].expand(B, S))
     for i, lp in enumerate(params["layers"]):
         if cache is not None:
-            st = cache["scanned"]
             x, pending, _ = tm._layer_decode(
-                lp, x, None, attn.KVCache(k=st.k[i], v=st.v[i]), pos)
+                lp, x, None, attn.KVCache(k=st.k[i], v=st.v[i]), slots, rope)
         else:
-            positions = torch.arange(S)[None].expand(B, S)
-            x, pending, c = tm._layer_full(lp, x, None, positions,
+            x, pending, c = tm._layer_full(lp, x, None, rope,
                                            cache_len=max_len)
             caches.append(c)
         x = x + pending

@@ -193,9 +193,12 @@ def test_fused_residual_norms_match_explicit_adds(dtype):
     fwd, _ = tm.forward(tparams, toks)
     assert torch.equal(fwd, _unfused_run(tm, tparams, toks))
     _, cache = tm.prefill(tparams, toks[:, :S])
+    # decode_step writes its cache in place: the reference steps a copy
+    ref_cache = blocks.SSDState(*(t.clone() for t in cache))
     pos = torch.full((B,), S, dtype=torch.long)
     dl, new = tm.decode_step(tparams, toks[:, S:], cache, pos)
-    dl_ref, new_ref = _unfused_run(tm, tparams, toks[:, S:], cache=cache)
+    dl_ref, new_ref = _unfused_run(tm, tparams, toks[:, S:],
+                                   cache=ref_cache)
     assert torch.equal(dl, dl_ref)
     assert torch.equal(new.ssm, new_ref.ssm)
     assert torch.equal(new.conv, new_ref.conv)
@@ -264,8 +267,8 @@ def _flat(tree, prefix=""):
 
 def test_engine_with_real_torch_execution():
     """The copy of ``test_torch_engine`` for Mamba-2: ``TorchBackend`` on
-    the CPU with AGFT attached drains 6 requests; the backend keeps the
-    new state that each decode step returns."""
+    the CPU with AGFT attached drains 6 requests; each decode step writes
+    the new state into the backend's own cache."""
     cfg = get_config(ARCH).reduced()
     backend = TorchBackend(cfg, A6000, max_batch=4, cache_len=64,
                            device="cpu")
@@ -291,6 +294,6 @@ def test_engine_with_real_torch_execution():
     # each forward ran at a power-of-two bucket of at most 64 tokens
     assert all(n & (n - 1) == 0 and n <= 64
                for n in backend.prefill_lengths)
-    assert backend.cache is not state0
+    assert backend.cache is state0
     assert float(backend.cache.ssm.abs().max()) > 0.0
     assert all(n == 0 for n in launch_counts().values())
