@@ -23,12 +23,22 @@ failure, or when there is no card or no checkout beside it. Phases:
    time per call (``host_us``); the fused RMSNorm beside the add and the
    norm launched apart, and the fused RG-LRU form beside the scan kernel
    with its gate ops launched apart (``unfused_ms``).
-3. Models: full-width llama3-3b, mamba2-1.3b and recurrentgemma-9b from a
-   seeded generator, one at a time; fp32 logits through the kernels
-   against the plain versions (recurrentgemma-9b cut to 5 layers: a unit
-   and the tail), the prefill->decode contract, and bf16 judged against
-   fp32, at 2 layers (a hybrid: 5) and at full depth.
-4. Graphs and serve: for each of the three models, a ``TorchBackend``
+   The MoE expert products (bf16 GEMMs with fp32 outputs) at
+   deepseek-v2-lite-16b's widths against fp64, as exact as the widened
+   fp32 product, and timed beside it.
+3. Models: full-width llama3-3b, mamba2-1.3b, recurrentgemma-9b,
+   deepseek-v2-lite-16b (MoE with MLA) and llama4-scout-17b-a16e (MoE,
+   GQA 40/8, cut to 2 layers) from a seeded generator, one at a time;
+   fp32 logits through the kernels against the plain versions
+   (recurrentgemma-9b cut to 5 layers: a unit and the tail; deepseek to 3:
+   its dense layer and two MoE layers), the prefill->decode contract, and
+   bf16 judged against fp32, at 2 layers (a hybrid: 5) and at full depth.
+   An MoE model's bf16 check prints the share of routing choices on which
+   the kernels and the plain versions agree, and holds the tokens that no
+   routing flip between them reaches (a flip moves its token by O(1), not
+   by a rounding); where a flip reaches every token at full depth, the
+   2-layer check is the gate.
+4. Graphs and serve: for each of the five models, a ``TorchBackend``
    (which captures its decode step and a forward a prefill bucket as CUDA
    graphs) in fp32 at phase 3's depth and in bf16 at full depth; each
    graph's replays against the eager step it captured, bit for bit
@@ -46,7 +56,7 @@ failure, or when there is no card or no checkout beside it. Phases:
    are printed. Last, a decode step and the largest prefill bucket's
    forward traced and timed, eager and as a graph; each trace must hold
    as many of the port's kernels as the launch counts say ran (a replay:
-   as many as its capture recorded), or it is taken again, 3 times in
+   as many as its capture recorded), or it is taken again, 5 times in
    all, before the run fails.
 
 The last lines are a JSON object with each kernel's numbers (a row per
@@ -85,10 +95,16 @@ BF16_VS_PLAIN = 1.5      # bf16 kernels' distance from fp32 / plain bf16's
 SWEEP_FLASH = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 128),
                (2, 384, 6, 2, 64)]
 MAIN_FLASH = [(1, S, 24, 8, 128) for S in (1, 16, 40, 64)]
+# llama4-scout-17b-a16e's prefill: 40 query heads over 8 kv heads (G = 5)
+G5_FLASH = [(1, S, 40, 8, 128) for S in (1, 16, 40, 64)]
 SWEEP_DECODE = [(1, 512, 4, 4, 64), (2, 1024, 8, 2, 64), (4, 512, 4, 1, 128)]
 MAIN_DECODE = (8, 2048, 24, 8, 128)
+G5_DECODE = (8, 2048, 40, 8, 128)
 SWEEP_RMS = [(4, 128), (2, 17, 256), (3, 5, 7, 512)]
 MAIN_RMS = [(8, 3072), (64, 3072)]
+# the other models' rows: d_model 2048 (mamba2-1.3b, deepseek-v2-lite-16b),
+# 4096 (recurrentgemma-9b), 5120 (llama4-scout-17b-a16e)
+MORE_RMS = [(n, d) for d in (2048, 4096, 5120) for n in (8, 64)]
 HOST_CALLS = 200         # RMSNorm launches timed on the host's clock
 # keys of some rows only: RMSNorm's host time per call, and the fused
 # RMSNorm's time with the add and the norm launched apart
@@ -110,10 +126,16 @@ MAIN_RGLRU = [(1, 64, 4096), (1, 256, 4096)]
 # buckets, and at its decode step (max_batch 8, one token)
 MAIN_GATED = [(1, 64, 4096), (1, 2, 4096)]
 STEP_GATED = (8, 1, 4096)
-MODELS = ("llama3-3b", "mamba2-1.3b", "recurrentgemma-9b")
-# recurrentgemma-9b's fp32 kernels-vs-plain check covers one (rec, rec,
-# attn) unit and the two-layer tail, 5 layers; its bf16 check runs all 38
-HYBRID_FP32_LAYERS = 5
+MODELS = ("llama3-3b", "mamba2-1.3b", "recurrentgemma-9b",
+          "deepseek-v2-lite-16b", "llama4-scout-17b-a16e")
+# llama4-scout-17b-a16e at full width is 216 GB in bf16: one card holds
+# it cut to 2 of its 48 layers (12.9 GB)
+DEPTH = {"llama4-scout-17b-a16e": 2}
+# the fp32 kernels-vs-plain check (and the fp32 backend of phase 4) at a
+# cut depth: recurrentgemma-9b's one (rec, rec, attn) unit and the
+# two-layer tail; deepseek-v2-lite-16b's dense layer and two MoE layers.
+# The bf16 checks run the whole depth
+FP32_LAYERS = {"recurrentgemma-9b": 5, "deepseek-v2-lite-16b": 3}
 # the shallow bf16 check: 2 layers (a hybrid: a unit and its tail), where
 # a rounding flip has not yet grown through the depth
 BF16_CUT_LAYERS = 2
@@ -122,7 +144,11 @@ BF16_CUT_LAYERS = 2
 ROWS = {"rmsnorm": ("rmsnorm", MODELS),
         "add_rmsnorm": ("rmsnorm_fused", MODELS),
         "flash_attention": ("flash_attention", ("llama3-3b",)),
+        "flash_attention_g5": ("flash_attention",
+                               ("llama4-scout-17b-a16e",)),
         "decode_attention": ("decode_attention", ("llama3-3b",)),
+        "decode_attention_g5": ("decode_attention",
+                                ("llama4-scout-17b-a16e",)),
         "decode_attention_d256_g16": ("decode_attention",
                                       ("recurrentgemma-9b",)),
         "ssd_scan": ("ssd_scan", ("mamba2-1.3b",)),
@@ -138,7 +164,9 @@ ROWS = {"rmsnorm": ("rmsnorm", MODELS),
 # serve runs prefill at most 64 tokens, so no serve launch is at the
 # chunk-128 SSD row's shape
 
-TRACE_TRIES = 3          # traces taken before a short one fails the run
+# traces taken before a short one fails the run, a second apart: on the
+# H100 the profiler has lost every kernel of three traces in a row
+TRACE_TRIES = 5
 
 
 def fail(msg: str) -> None:
@@ -217,9 +245,9 @@ def traced(torch, fn, calls: int, cpu: bool = False):
     only if it holds, of each group of the port's kernels
     (``DEVICE_KERNELS``), as many as the launch counts rose by over those
     calls, a graph's replay by what its capture recorded. The profiler has
-    dropped the first kernels of a trace on the H100: a trace short of
-    them is taken again, ``TRACE_TRIES`` times in all, then the run
-    fails."""
+    dropped kernels of a trace on the H100, now and then all of them: a
+    trace short of them is taken again, ``TRACE_TRIES`` times in all, a
+    second apart, then the run fails."""
     from repro_torch.kernels import (device_launches, profile_calls,
                                      traced_launches)
     for attempt in range(TRACE_TRIES):
@@ -230,6 +258,7 @@ def traced(torch, fn, calls: int, cpu: bool = False):
             return events, wall
         say(f"  trace {attempt + 1} of {TRACE_TRIES} is short: the profiler "
             f"saw {seen} of the port's kernels, the counts say {want}")
+        time.sleep(1.0)
     fail(f"the profiler missed kernels that ran in {TRACE_TRIES} traces")
 
 
@@ -312,7 +341,7 @@ def check_kernels(torch, dev):
             failures.append(f"decode all-invalid row not 0 (D{D} {dn})")
 
     for dn, dt in dtypes.items():
-        for shape in SWEEP_RMS + MAIN_RMS:
+        for shape in SWEEP_RMS + MAIN_RMS + MORE_RMS:
             x = randn(torch, gen, shape, dt)
             r = randn(torch, gen, shape, dt)
             w = (1.0 + 0.1 * randn(torch, gen, (shape[-1],),
@@ -324,20 +353,25 @@ def check_kernels(torch, dev):
                 failures.append(f"add_rmsnorm {shape} {dn}: s != x + r")
             record("add_rmsnorm", str(shape), dn, y_k,
                    rms.add_rmsnorm_plain(x, r, w)[1], shape in MAIN_RMS)
-        for (B, S, H, Hkv, D) in SWEEP_FLASH + MAIN_FLASH:
+        for (B, S, H, Hkv, D) in SWEEP_FLASH + MAIN_FLASH + G5_FLASH:
             q = randn(torch, gen, (B, S, H, D), dt)
             k = randn(torch, gen, (B, S, Hkv, D), dt)
             v = randn(torch, gen, (B, S, Hkv, D), dt)
-            record("flash_attention", f"B{B} S{S} H{H} Hkv{Hkv} D{D}", dn,
+            g5 = (B, S, H, Hkv, D) in G5_FLASH
+            record("flash_attention_g5" if g5 else "flash_attention",
+                   f"B{B} S{S} H{H} Hkv{Hkv} D{D}", dn,
                    fa.flash_attention(q, k, v, causal=True),
                    fa.flash_attention_plain(q, k, v, causal=True),
-                   (B, S, H, Hkv, D) in MAIN_FLASH)
-        for (B, T, H, Hkv, D) in SWEEP_DECODE + [MAIN_DECODE]:
+                   g5 or (B, S, H, Hkv, D) in MAIN_FLASH)
+        for (B, T, H, Hkv, D) in SWEEP_DECODE + [MAIN_DECODE, G5_DECODE]:
             lengths = torch.randint(1, T + 1, (B,), generator=gen,
                                     device=dev)
             valid = torch.arange(T, device=dev)[None] < lengths[:, None]
+            shape = (B, T, H, Hkv, D)
             decode_case(B, T, H, Hkv, D, dt, dn, valid,
-                        (B, T, H, Hkv, D) == MAIN_DECODE)
+                        shape in (MAIN_DECODE, G5_DECODE),
+                        "decode_attention_g5" if shape == G5_DECODE
+                        else "decode_attention")
         # recurrentgemma-9b's ring: rows that wrapped it (every slot live)
         # and rows that did not (a prefix), one row with no valid slot
         B, T, H, Hkv, D = WIDE_DECODE
@@ -504,26 +538,29 @@ def time_kernels(torch, dev, main_err):
         unfused_ms=device_ms(torch, lambda: rms.rmsnorm(x + r, w)),
         kernel_us=kernel_us(torch, lambda: rms.add_rmsnorm(x, r, w)),
         host_us=host_us(torch, lambda: rms.add_rmsnorm(x, r, w))))
-    # flash prefill at the largest prefill bucket
-    B, S, H, Hkv, Dh = MAIN_FLASH[-1]
-    q = randn(torch, gen, (B, S, H, Dh), bf)
-    k = randn(torch, gen, (B, S, Hkv, Dh), bf)
-    v = randn(torch, gen, (B, S, Hkv, Dh), bf)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * Hkv * Dh)
-    flops = 4.0 * B * H * Dh * S * (S + 1) / 2
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    rows.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:65",
-        shape=f"q ({B}, {S}, {H}, {Dh}), kv heads {Hkv}, causal, bf16",
-        ms=device_ms(torch, lambda: fa.flash_attention(q, k, v)),
-        plain_ms=device_ms(torch, lambda: fa.flash_attention_plain(q, k, v)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), "flash"),
-        kernel_us=kernel_us(torch, lambda: fa.flash_attention(q, k, v))))
+    # flash prefill at the largest prefill bucket: llama3-3b's 24 query
+    # heads over 8, llama4-scout-17b-a16e's 40 over 8
+    for row, (B, S, H, Hkv, Dh) in (("flash_attention", MAIN_FLASH[-1]),
+                                    ("flash_attention_g5", G5_FLASH[-1])):
+        q = randn(torch, gen, (B, S, H, Dh), bf)
+        k = randn(torch, gen, (B, S, Hkv, Dh), bf)
+        v = randn(torch, gen, (B, S, Hkv, Dh), bf)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * Hkv * Dh)
+        flops = 4.0 * B * H * Dh * S * (S + 1) / 2
+        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        rows.append(dict(
+            name=row, route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:65",
+            shape=f"q ({B}, {S}, {H}, {Dh}), kv heads {Hkv}, causal, bf16",
+            ms=device_ms(torch, lambda: fa.flash_attention(q, k, v)),
+            plain_ms=device_ms(torch,
+                               lambda: fa.flash_attention_plain(q, k, v)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), "flash"),
+            kernel_us=kernel_us(torch, lambda: fa.flash_attention(q, k, v))))
     def decode_timing(shape, max_len):
         """The decode kernel against a cache of ragged validity: each row
         holds 1..max_len tokens (past T: a ring that wrapped, all live)."""
@@ -552,10 +589,12 @@ def time_kernels(torch, dev, main_err):
             kernel_us=kernel_us(
                 torch, lambda: dec.decode_attention(q, kc, vc, valid)))
 
-    # decode at llama3-3b's cache shape, and at recurrentgemma-9b's
-    # (16 query heads over 1 kv head at head_dim 256, a 2048-slot ring)
+    # decode at llama3-3b's cache shape, at llama4-scout-17b-a16e's (40
+    # query heads over 8), and at recurrentgemma-9b's (16 query heads over
+    # 1 kv head at head_dim 256, a 2048-slot ring)
     for row, shape, max_len in (
             ("decode_attention", MAIN_DECODE, MAIN_DECODE[1]),
+            ("decode_attention_g5", G5_DECODE, G5_DECODE[1]),
             ("decode_attention_d256_g16", WIDE_DECODE,
              2 * WIDE_DECODE[1] - 1)):
         rows.append(dict(
@@ -657,6 +696,48 @@ def time_kernels(torch, dev, main_err):
     return rows
 
 
+def check_moe_products(torch, dev):
+    """The MoE expert products as the card computes them
+    (``blocks._mm_f32``: bf16 GEMMs with fp32 outputs, an fp32 operand in
+    three bf16 parts) at deepseek-v2-lite-16b's widths, for a decode
+    step's 8 tokens and a 64-token prefill: gate/up (x against (E, d, f))
+    and the down projection (the masked fp32 h, 6 experts of 64 live per
+    token, against (E*f, d)). Each must be as exact as the product of the
+    widened operands against fp64: within twice the widened product's
+    largest error plus 2e-5 of the output's scale. Then both timed."""
+    from repro_torch.models.blocks import _mm_f32
+    E, D, F, K = 64, 2048, 1408, 6
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    w = (randn(torch, gen, (E, D, F), torch.float32) * D ** -0.5).to(bf)
+    wo = (randn(torch, gen, (E * F, D), torch.float32) * F ** -0.5).to(bf)
+    bad = []
+    for N in (8, 64):
+        x = randn(torch, gen, (N, D), bf)
+        live = torch.rand((N, E), generator=gen, device=dev).argsort(-1) < K
+        h = randn(torch, gen, (N, E, F), torch.float32) * live[..., None]
+        for what, a, b in (("gate/up", x[None].expand(E, N, D), w),
+                           ("down", h.reshape(N, E * F), wo)):
+            ref = torch.matmul(a.double(), b.double())
+            wide = torch.matmul(a.float(), b.float())
+            got = _mm_f32(a, b)
+            err_w = float((wide.double() - ref).abs().max())
+            err = float((got.double() - ref).abs().max())
+            ok = err <= 2 * err_w + 2e-5 * float(ref.abs().max())
+            ms = device_ms(torch, lambda: _mm_f32(a, b))
+            ms_w = device_ms(torch, lambda: torch.matmul(a.float(),
+                                                         b.float()))
+            say(f"  moe {what:7s} N{N}: max abs err vs fp64 {err:.3e} "
+                f"(widened fp32 {err_w:.3e}) {'ok' if ok else 'FAIL'}; "
+                f"{ms:.4f} ms (widened operands {ms_w:.4f} ms)")
+            if not ok:
+                bad.append(f"{what} N{N}")
+    del w, wo
+    if bad:
+        fail("MoE expert products less exact than the widened fp32 "
+             "product: " + "; ".join(bad))
+
+
 def plan_note(torch, lru, B, S, W) -> str:
     """The RG-LRU kernel's grid at (B, S, W) on this card."""
     p = lru.plan(B, S, W,
@@ -705,7 +786,10 @@ def check_model(torch, dev, cfg, fp32_layers=None):
     kernels' bf16 logits are judged by their distance from the fp32 logits
     of the same depth, which may exceed the plain bf16 path's by
     BF16_VS_PLAIN at most; at BF16_CUT_LAYERS, where the drift is small,
-    and at full depth."""
+    and at full depth. In an MoE model the rule holds the tokens that no
+    routing flip between the two bf16 paths reaches (``routing_flips``);
+    at full depth, where one may reach them all, the check at
+    BF16_CUT_LAYERS is then the gate."""
     import numpy as np
     from repro_torch.models import build_model, tree_tensors
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -744,38 +828,103 @@ def check_model(torch, dev, cfg, fp32_layers=None):
             fail(f"{cfg.name}: fp32 model through the kernels disagrees "
                  "with the plain versions or breaks the prefill->decode "
                  "contract")
-        for c16, p16 in (prefix(cfg, params, BF16_CUT_LAYERS),
-                         (cfg, params)):
+        depths = [prefix(cfg, params, BF16_CUT_LAYERS)]
+        if depths[0][0].num_layers < cfg.num_layers:
+            depths.append((cfg, params))
+        for c16, p16 in depths:
             c32 = c16.replace(dtype="float32", param_dtype="float32")
             l32 = build_model(c32).forward(p16, toks)[0]
-            lk = build_model(c16.replace(use_pallas=True)).forward(p16,
-                                                                   toks)[0]
-            lp = build_model(c16).forward(p16, toks)[0]
+            lk, rk = routings(lambda: build_model(
+                c16.replace(use_pallas=True)).forward(p16, toks)[0])
+            lp, rp = routings(lambda: build_model(c16).forward(p16,
+                                                               toks)[0])
             e_k, e_p = rel_l2(torch, lk, l32), rel_l2(torch, lp, l32)
             say(f"  bf16 logits vs fp32 at {c16.num_layers} layers: kernels"
                 f" rel-L2 {e_k:.3e}, plain {e_p:.3e} (kernels <= "
                 f"{BF16_VS_PLAIN} x plain); kernels vs plain "
                 f"{rel_l2(torch, lk, lp):.3e}")
+            held = "all tokens"
+            if rk:
+                agree, keep = routing_flips(torch, rk, rp)
+                say(f"  routing at {c16.num_layers} layers: kernels and "
+                    f"plain agree on {agree:.6f} of the "
+                    f"{sum(r.numel() for r in rk)} (token, expert) choices; "
+                    f"{int(keep.sum())} of {keep.numel()} tokens reached "
+                    "by no flip")
+                if not bool(keep.any()):
+                    if c16.num_layers <= BF16_CUT_LAYERS:
+                        fail(f"{cfg.name}: a routing flip reaches every "
+                             f"token at {c16.num_layers} layers")
+                    say(f"  not gated at {c16.num_layers} layers: a "
+                        "routing flip reaches every token (the check at "
+                        f"{BF16_CUT_LAYERS} layers is the gate)")
+                    del l32, lk, lp
+                    continue
+                if not bool(keep.all()):
+                    lk, lp, l32 = lk[keep], lp[keep], l32[keep]
+                    e_k = rel_l2(torch, lk, l32)
+                    e_p = rel_l2(torch, lp, l32)
+                    held = f"the {int(keep.sum())} tokens no flip reaches"
+                    say(f"  on {held}: kernels rel-L2 {e_k:.3e}, plain "
+                        f"{e_p:.3e}")
             if not bool(torch.isfinite(lk).all()) or \
                     e_k > BF16_VS_PLAIN * e_p:
                 fail(f"{cfg.name}: bf16 model logits through the kernels "
-                     f"at {c16.num_layers} layers are further from fp32 "
-                     "than the plain versions'")
+                     f"at {c16.num_layers} layers ({held}) are further from "
+                     "fp32 than the plain versions'")
             del l32, lk, lp
     del params
     torch.cuda.empty_cache()
 
 
+def routings(fn):
+    """``fn()`` with the top-k experts of every MoE layer it runs recorded:
+    (its result, a (B, S, K) tensor per MoE layer, in order)."""
+    from repro_torch.models import blocks
+    real, seen = blocks.moe_forward, []
+
+    def recording(p, cfg, x):
+        seen.append(blocks.route(p, cfg, x)[2])
+        return real(p, cfg, x)
+
+    blocks.moe_forward = recording
+    try:
+        return fn(), seen
+    finally:
+        blocks.moe_forward = real
+
+
+def routing_flips(torch, a, b):
+    """Two runs' routings (``routings``) of one sequence: the share of the
+    first run's (token, expert) choices that the second also made, and the
+    (B, S) tokens that no flip reaches. A token whose expert set differs
+    at any MoE layer is flipped; a flip before the last layer (the MoE
+    layers are a model's last) also reaches every later position of its
+    row, through attention."""
+    a = torch.stack([r.sort(-1).values for r in a])      # (layers, B, S, K)
+    b = torch.stack([r.sort(-1).values for r in b])
+    agree = float((a[..., :, None] == b[..., None, :]).any(-1).float()
+                  .mean())
+    diff = (a != b).any(-1)                              # (layers, B, S)
+    S = diff.shape[-1]
+    pos = torch.arange(S, device=a.device)
+    early = diff[:-1].any(0)                              # (B, S)
+    first = torch.where(early, pos, S).min(-1).values     # (B,)
+    return agree, ~diff.any(0) & (pos[None] < first[:, None])
+
+
 def prefix(cfg, params, layers):
-    """The model cut to its first ``layers`` layers; a hybrid to as many
-    whole (rec, rec, attn) units (at least one) and its tail."""
+    """The model cut to its first ``layers`` layers (an MoE model's dense
+    prefix layers among them); a hybrid to as many whole (rec, rec, attn)
+    units (at least one) and its tail."""
     if cfg.arch_type == "hybrid":
         units = max(1, layers // len(cfg.block_pattern))
         return (cfg.replace(num_layers=units * len(cfg.block_pattern)
                             + len(params["tail"])),
                 dict(params, units=params["units"][:units]))
+    n_prefix = len(params.get("prefix", ()))
     return (cfg.replace(num_layers=layers),
-            dict(params, layers=params["layers"][:layers]))
+            dict(params, layers=params["layers"][:layers - n_prefix]))
 
 
 # ---------------------------------------------------------------------------
@@ -786,9 +935,8 @@ def graphs_and_serve(torch, dev, cfg):
     """Phase 4 for one model; returns the AGFT serve run's launch counts."""
     from repro_torch.energy import H100
     from repro_torch.serving import TorchBackend
-    c32 = cfg.replace(dtype="float32", param_dtype="float32")
-    if cfg.arch_type == "hybrid":
-        c32 = c32.replace(num_layers=HYBRID_FP32_LAYERS)
+    c32 = cfg.replace(dtype="float32", param_dtype="float32",
+                      num_layers=FP32_LAYERS.get(cfg.name, cfg.num_layers))
     for c in (c32, cfg):
         backend = None                    # free the last one first
         torch.cuda.empty_cache()
@@ -804,10 +952,68 @@ def graphs_and_serve(torch, dev, cfg):
             f"{sum(g.memory_bytes for g in graphs) / 2**20:.1f} MiB; a "
             f"decode replay launches {backend.decode_graph.launches}")
         check_graphs(torch, dev, backend)
+    from repro_torch.models import tree_tensors
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_tensors(backend.params))
+    say(f"  weight floor of a step: {nbytes / 1e9:.2f} GB of weights once "
+        f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+        f"{1e3 * nbytes / HBM_BYTES_PER_S:.3f} ms")
     counts = serve(torch, backend, "agft")
     serve(torch, backend, "static")
     trace_steps(torch, backend)
+    if cfg.num_experts:
+        step_parts(torch, backend)
     return counts
+
+
+def step_parts(torch, backend, context: int = 600):
+    """Where an MoE model's decode step goes, by part: each part of one
+    layer timed alone (``device_ms``) on the backend's own weights at the
+    step's shapes (``max_batch`` tokens; under MLA a cache of
+    ``cache_len`` slots at ``context``), times the layers that run it. The
+    layer's weights meet the part cold, as in a step; the latent cache
+    (16.8 MB a layer) stays in L2 between calls, as it does not in a
+    step."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import blocks
+    from repro_torch.models.common import model_rope
+    cfg, params, dev = backend.cfg, backend.params, backend.device
+    B, T, D = backend.max_batch, backend.cache_len, cfg.d_model
+    E, F = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dt = cfg.activation_dtype
+    lp = params["layers"][0]
+    moe, n_moe = lp["moe"], len(params["layers"])
+    h = randn(torch, gen, (B, 1, D), dt)
+    xe = h.reshape(B, D)[None].expand(E, B, D)
+    hf = randn(torch, gen, (B, E * F), torch.float32)
+    w_out = moe["w_out"].reshape(E * F, D)
+    parts = [("MoE block", n_moe, lambda: blocks.moe_forward(moe, cfg, h)),
+             ("  its expert products (gate, up, down)", n_moe,
+              lambda: (blocks._mm_f32(xe, moe["w_gate"]),
+                       blocks._mm_f32(xe, moe["w_in"]),
+                       blocks._mm_f32(hf, w_out)))]
+    if cfg.use_mla:
+        pos = torch.full((B,), context, dtype=torch.long, device=dev)
+        cache = attn.MLACache(
+            randn(torch, gen, (B, T, cfg.kv_lora_rank), dt),
+            randn(torch, gen, (B, T, cfg.qk_rope_head_dim), dt))
+        slots = attn.decode_slots(cfg, T, pos)
+        rope = model_rope(cfg, pos[:, None])
+        k_nope, v = attn._mla_up(lp["attn"], cfg, cache.c_kv)
+        parts += [
+            ("MLA decode", cfg.num_layers,
+             lambda: attn.mla_decode(lp["attn"], cfg, h, cache, slots, rope)),
+            ("  its up-projection of the cache (K, V)", cfg.num_layers,
+             lambda: attn._mla_up(lp["attn"], cfg, cache.c_kv)),
+            ("  its fp32 casts of K and V", cfg.num_layers,
+             lambda: (k_nope.float(), v.float()))]
+    say(f"  {cfg.name} decode step by part (batch {B}, one layer's part "
+        "timed alone, x layers):")
+    with torch.no_grad():
+        for name, n, fn in parts:
+            ms = device_ms(torch, fn)
+            say(f"    {name}: {ms:.4f} ms x {n} = {n * ms:.3f} ms")
 
 
 def check_graphs(torch, dev, backend, steps: int = 3):
@@ -937,7 +1143,9 @@ def path_launches(cfg, prefill_lengths, dec):
     (after the embedding) take the residual add in (``rmsnorm_fused``);
     per forward, flash attention
     L (dense) and the SSD scan L (Mamba-2, at every length); per decode
-    step, decode attention L (dense) or once per attention layer (hybrid);
+    step, decode attention L (dense) or once per attention layer (hybrid),
+    neither under MLA (an MoE model's norms are the dense model's: 2L+1,
+    its latents' norm staying plain, as in the JAX package);
     per forward and per decode step, the RG-LRU kernel's fused form once per
     rec layer (hybrid), counted in ``rglru_scan`` and, by its length, in
     ``rglru_gated`` (two tokens or more) or ``rglru_gated_step`` (one: a
@@ -959,6 +1167,8 @@ def path_launches(cfg, prefill_lengths, dec):
                 "rglru_gated": rec * multi,
                 "rglru_gated_step": rec * (fwd - multi + dec),
                 "decode_attention": units * pat.count("attn") * dec}
+    if cfg.use_mla:                   # MLA attends by einsum, as in JAX
+        return norms
     return {**norms, "flash_attention": L * fwd, "decode_attention": L * dec}
 
 
@@ -1025,6 +1235,13 @@ def trace_steps(torch, backend, steps: int = 4, timed: int = 20):
 
 # ---------------------------------------------------------------------------
 
+def model_config(name):
+    """The model's config at full width, at the depth one card holds."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return cfg.replace(num_layers=DEPTH.get(name, cfg.num_layers))
+
+
 def main() -> None:
     try:
         import torch
@@ -1046,7 +1263,6 @@ def main() -> None:
     say(f"  card: {card}")
     say(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build_all()
@@ -1057,17 +1273,17 @@ def main() -> None:
     say("== phase 2: kernels vs plain versions")
     main_err = check_kernels(torch, dev)
     rows = time_kernels(torch, dev, main_err)
+    check_moe_products(torch, dev)
 
     say("== phase 3: full-width models")
     for name in MODELS:
-        cfg = get_config(name)
-        check_model(torch, dev, cfg, fp32_layers=(
-            HYBRID_FP32_LAYERS if cfg.arch_type == "hybrid" else None))
+        check_model(torch, dev, model_config(name),
+                    fp32_layers=FP32_LAYERS.get(name))
 
     say("== phase 4: CUDA graphs, and serve under AGFT and static")
     counts = {}                           # model -> kernel -> launches
     for name in MODELS:
-        counts[name] = graphs_and_serve(torch, dev, get_config(name))
+        counts[name] = graphs_and_serve(torch, dev, model_config(name))
         torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

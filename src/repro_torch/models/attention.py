@@ -1,14 +1,16 @@
-"""GQA attention of the port: prefill and decode, the KV cache and its
-sliding-window ring buffer. Plain paths are PyTorch; with ``cfg.use_pallas``
-the hand-written Hopper kernels of ``repro_torch.kernels`` run instead (on
-a CPU tensor their plain versions run). MLA, cross-attention and the
-chunked reference path (``ref_attention="chunked"``) of
-``repro.models.attention`` are not ported yet and raise.
+"""Attention of the port: GQA prefill and decode, the KV cache and its
+sliding-window ring buffer, the chunked (streaming-softmax) reference, and
+MLA (DeepSeek-V2's multi-head latent attention over a compressed cache).
+Plain paths are PyTorch; with ``cfg.use_pallas`` the hand-written Hopper
+kernels of ``repro_torch.kernels`` run GQA's prefill and decode instead (on
+a CPU tensor their plain versions run). MLA attends through einsums, as the
+JAX package does, with no kernel. Cross-attention (whisper) is not ported
+yet.
 
-The decode cache is updated in place: ``attention_decode`` writes the new
-token's K/V into the cache tensors it was given and returns them. What
-every attention layer of a step shares, the rope tables
-(``common.model_rope``) and the slots written and read
+The decode caches are updated in place: ``attention_decode`` and
+``mla_decode`` write the new token's entries into the cache tensors they
+were given and return them. What every attention layer of a step shares,
+the rope tables (``common.model_rope``) and the slots written and read
 (``decode_slots``), the models build once a step and pass down.
 """
 from __future__ import annotations
@@ -22,8 +24,9 @@ from repro_torch.models.common import (ModelConfig, RopeTables, apply_rope,
 
 NEG_INF = -1e30
 
-# threshold above which ``ref_attention="chunked"`` would switch the plain
-# path to the streaming reference (not ported)
+# threshold above which full-sequence attention switches to the chunked
+# (flash-style) reference path when ``ref_attention="chunked"``; small
+# shapes keep the naive path
 CHUNKED_ATTENTION_MIN_SEQ = 1024
 
 
@@ -70,6 +73,54 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return kops.decode_attention(q, k_cache, v_cache, valid)
     mask = valid[:, None, None, :]                        # (B,1,1,T)
     return gqa_attention(q, k_cache, v_cache, mask)
+
+
+def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0,
+                            block_k: int = 512) -> torch.Tensor:
+    """Memory-bounded reference attention: a loop over ``block_k`` slices of
+    the keys with a running (m, l, acc) streaming softmax in fp32, the
+    counterpart of ``repro.models.attention.flash_attention_jnp``. Its
+    temporaries are O(S * block_k) instead of O(S * T).
+
+    q: (B,S,H,Dk); k: (B,T,Hkv,Dk); v: (B,T,Hkv,Dv). Query and key absolute
+    positions are their indices (the prefill convention); ``window`` keeps
+    keys j in (i - window, i]."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // Hkv
+    f32 = dict(dtype=torch.float32, device=q.device)
+    qg = q.reshape(B, S, Hkv, G, D).float() * (D ** -0.5)
+    rows = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, S, Hkv, G), NEG_INF, **f32)
+    l = torch.zeros((B, S, Hkv, G), **f32)
+    acc = torch.zeros((B, S, Hkv, G, Dv), **f32)
+    for j0 in range(0, T, block_k):
+        kj = k[:, j0:j0 + block_k].float()
+        vj = v[:, j0:j0 + block_k].float()
+        cols = torch.arange(j0, j0 + kj.shape[1], device=q.device)[None, :]
+        mask = torch.ones((S, kj.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask = mask & (cols <= rows)
+        if window:
+            mask = mask & (cols > rows - window)
+        mask = mask[None, :, None, None, :]
+        s = torch.einsum("bshgd,bthd->bshgt", qg, kj)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bshgt,bthd->bshgd",
+                                                    p, vj)
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    out = acc / l[..., None]
+    return out.reshape(B, S, H, Dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -178,16 +229,14 @@ def attention_forward(p, cfg: ModelConfig, x: torch.Tensor,
     ``rope``: the tables of the tokens' positions (``model_rope``)."""
     num_kv = cfg.num_kv_heads if num_kv is None else num_kv
     B, S, _ = x.shape
-    if (cfg.ref_attention == "chunked" and S >= CHUNKED_ATTENTION_MIN_SEQ
-            and not cfg.use_pallas):
-        raise NotImplementedError(
-            "ref_attention='chunked' (the streaming reference of "
-            "repro.models.attention.flash_attention_jnp) is not ported yet")
     q, k, v = _project_qkv(p, cfg, x, num_kv)
     if cfg.use_rope:
         q = apply_rope(q, rope)
         k = apply_rope(k, rope)
-    if window:
+    if (cfg.ref_attention == "chunked" and S >= CHUNKED_ATTENTION_MIN_SEQ
+            and not cfg.use_pallas):
+        out = flash_attention_chunked(q, k, v, causal=True, window=window)
+    elif window:
         # banded causal mask: j in (i-window, i]
         i = torch.arange(S, device=x.device)[:, None]
         j = torch.arange(S, device=x.device)[None, :]
@@ -203,7 +252,9 @@ def attention_forward(p, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
-    return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+    """``pad`` zero slots after the sequence axis (1) of a (B, S, ...)
+    tensor."""
+    return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
 
 
 def _cache_from_prefill(cfg: ModelConfig, k, v, window: int,
@@ -261,3 +312,139 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: KVCache,
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
     y = out @ p["wo"].to(out.dtype)
     return y, KVCache(k=k_new, v=v_new)
+
+
+# ---------------------------------------------------------------------------
+# MLA: Multi-head Latent Attention (DeepSeek-V2) with a compressed KV cache
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    """Per-layer MLA cache; a model's stacked cache holds (L, B, T, ...)
+    tensors."""
+    c_kv: torch.Tensor     # (B, T, kv_lora_rank) compressed latents
+    k_rope: torch.Tensor   # (B, T, qk_rope_head_dim) shared rope key
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig):
+    dt = cfg.weight_dtype
+    H = cfg.num_heads
+    qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    return {
+        "wq": dense_init(gen, (cfg.d_model, H * qk_dim), dt),
+        "w_dkv": dense_init(
+            gen, (cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_head_dim), dt),
+        "kv_norm": torch.ones((cfg.kv_lora_rank,), dtype=dt,
+                              device=gen.device),
+        "w_uk": dense_init(gen, (cfg.kv_lora_rank,
+                                 H * cfg.qk_nope_head_dim), dt),
+        "w_uv": dense_init(gen, (cfg.kv_lora_rank, H * cfg.v_head_dim), dt),
+        "wo": dense_init(gen, (H * cfg.v_head_dim, cfg.d_model), dt),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   device="cuda") -> MLACache:
+    dt = cfg.activation_dtype
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dt,
+                         device=device),
+        k_rope=torch.zeros((batch, max_len, cfg.qk_rope_head_dim), dtype=dt,
+                           device=device))
+
+
+def _mla_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope: RopeTables):
+    """Project q (nope and rope parts) and the compressed kv latents. The
+    latents' norm is the plain RMSNorm, as in the JAX package."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, qk_dim)
+    q_nope, q_rope = torch.split(
+        q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, rope)
+    ckv = x @ p["w_dkv"].to(x.dtype)                      # (B,S,rank+rope)
+    c_kv, k_rope = torch.split(
+        ckv, [cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], rope)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_up(p, cfg: ModelConfig, c_kv: torch.Tensor):
+    """K (nope part) and V of every latent: (B,T,H,nope), (B,T,H,v)."""
+    B, T = c_kv.shape[:2]
+    H = cfg.num_heads
+    k_nope = (c_kv @ p["w_uk"].to(c_kv.dtype)).reshape(
+        B, T, H, cfg.qk_nope_head_dim)
+    v = (c_kv @ p["w_uv"].to(c_kv.dtype)).reshape(B, T, H, cfg.v_head_dim)
+    return k_nope, v
+
+
+def _mla_attend(p, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Attention over (possibly cached) latents, up-projecting K and V of
+    every latent as the JAX package does. ``mask`` broadcasts to
+    (B, H, S, T)."""
+    H = cfg.num_heads
+    B = c_kv.shape[0]
+    k_nope, v = _mla_up(p, cfg, c_kv)
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    s_nope = torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
+    s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(), k_rope.float())
+    scores = (s_nope + s_rope) * scale
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    out = out.reshape(B, -1, H * cfg.v_head_dim).to(q_nope.dtype)
+    return out @ p["wo"].to(out.dtype)
+
+
+def _mla_attend_chunked(p, cfg: ModelConfig, q_nope, q_rope, c_kv,
+                        k_rope) -> torch.Tensor:
+    """Flash-style MLA attention: (nope, rope) concatenated into one key
+    space so that the chunked streaming softmax applies."""
+    B, T = c_kv.shape[:2]
+    H = cfg.num_heads
+    k_nope, v = _mla_up(p, cfg, c_kv)
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, T, H, cfg.qk_rope_head_dim)], dim=-1)
+    out = flash_attention_chunked(q_cat, k_cat, v, causal=True)
+    out = out.reshape(B, -1, H * cfg.v_head_dim)
+    return out @ p["wo"].to(out.dtype)
+
+
+def mla_forward(p, cfg: ModelConfig, x: torch.Tensor, rope: RopeTables,
+                cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, MLACache]:
+    """Causal MLA over a whole sequence; returns the output and the latent
+    cache a decode would consume. ``rope``: the tables of the tokens'
+    positions at ``qk_rope_head_dim`` (``model_rope``)."""
+    B, S, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, rope)
+    if (cfg.ref_attention == "chunked"
+            and S >= CHUNKED_ATTENTION_MIN_SEQ):
+        y = _mla_attend_chunked(p, cfg, q_nope, q_rope, c_kv, k_rope)
+    else:
+        causal = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                       device=x.device))[None, None]
+        y = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, causal)
+    if cache_len is not None and cache_len > S:
+        c_kv = _pad_seq(c_kv, cache_len - S)
+        k_rope = _pad_seq(k_rope, cache_len - S)
+    return y, MLACache(c_kv=c_kv, k_rope=k_rope)
+
+
+def mla_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: MLACache,
+               slots: DecodeSlots, rope: RopeTables
+               ) -> Tuple[torch.Tensor, MLACache]:
+    """One-token MLA decode. x: (B,1,d_model); ``slots``: the step's
+    ``decode_slots`` (no window: MLA's cache is never a ring); ``rope``:
+    the tables of its positions. The new latent and rope key are written
+    into the cache in place, which is returned."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, rope)
+    c_new = _write_cache(cfg, cache.c_kv, c_kv, slots)
+    kr_new = _write_cache(cfg, cache.k_rope, k_rope, slots)
+    y = _mla_attend(p, cfg, q_nope, q_rope, c_new, kr_new,
+                    slots.valid[:, None, None])
+    return y, MLACache(c_kv=c_new, k_rope=kr_new)

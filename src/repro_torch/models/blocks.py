@@ -1,7 +1,7 @@
-"""Non-attention blocks of the port: the dense FFN (gated and ungated), the
-RG-LRU recurrent block (Griffin / RecurrentGemma) and the Mamba-2 SSD mixer,
-the counterparts of ``repro.models.blocks``. The MoE blocks are not ported
-yet.
+"""Non-attention blocks of the port: the dense FFN (gated and ungated), MoE
+(top-k routed experts plus shared experts, with dense or capacity
+dispatch), the RG-LRU recurrent block (Griffin / RecurrentGemma) and the
+Mamba-2 SSD mixer, the counterparts of ``repro.models.blocks``.
 
 With ``cfg.use_pallas`` the SSD scan and the RG-LRU block's gates and
 recurrence run the hand-written Hopper kernels of ``repro_torch.kernels``
@@ -48,6 +48,179 @@ def ffn_forward(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = ffn_act(up, up, cfg.ffn_activation)
     return h @ p["w_out"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routed experts (+ optional shared experts)
+#
+# The JAX package runs the experts on fp32 operands: widened activations and
+# widened expert weights. Products of two bf16 values are exact in fp32, so
+# on the card ``_mm_f32`` computes the same products with bf16 tensor-core
+# GEMMs that accumulate and write fp32, and no fp32 copy of the weights;
+# only the sums differ, in order and in the tensor cores' rounding of them.
+# Nothing in the routing or the dispatch reads a value on the host or makes
+# a shape from the data, so a step captures as a CUDA graph.
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig):
+    dt = cfg.weight_dtype
+    E = cfg.num_experts
+    d_ff = cfg.moe_d_ff or cfg.d_ff
+    p = {
+        "router": dense_init(gen, (cfg.d_model, E), dt, scale=0.02),
+        "w_gate": dense_init(gen, (E, cfg.d_model, d_ff), dt),
+        "w_in": dense_init(gen, (E, cfg.d_model, d_ff), dt),
+        "w_out": dense_init(gen, (E, d_ff, cfg.d_model), dt),
+    }
+    if cfg.num_shared_experts:
+        shared_ff = d_ff * cfg.num_shared_experts
+        p["shared"] = init_ffn(gen, cfg.replace(d_ff=shared_ff),
+                               d_ff=shared_ff)
+    return p
+
+
+class MoEAux(NamedTuple):
+    load_balance_loss: torch.Tensor
+    router_entropy: torch.Tensor
+
+
+def _split_bf16(a: torch.Tensor):
+    """Three bf16 tensors whose fp32 sum is ``a`` (fp32): each takes the
+    next 8 bits of the 24-bit significand, and each difference is exact."""
+    hi = a.to(torch.bfloat16)
+    r = a - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a.float() @ b.float()`` for (M, K) @ (K, N) or batched
+    (E, M, K) @ (E, K, N), in fp32. With bf16 ``b`` on the card: one bf16
+    GEMM with an fp32 output over ``a`` (bf16), or over the three bf16
+    parts of ``a`` (fp32, ``_split_bf16``) stacked along M and summed after,
+    so every product is exact and only the sums differ from the widened
+    product's (their order, and the tensor cores' fp32 accumulation)."""
+    mm = torch.mm if a.dim() == 2 else torch.bmm
+    if not (b.is_cuda and b.dtype == torch.bfloat16):
+        return mm(a.float(), b.float())
+    if a.dtype == torch.bfloat16:
+        return mm(a, b, out_dtype=torch.float32)
+    M = a.shape[-2]
+    out = mm(torch.cat(_split_bf16(a.float()), dim=-2), b,
+             out_dtype=torch.float32)
+    return out[..., :M, :] + out[..., M:2 * M, :] + out[..., 2 * M:, :]
+
+
+def route(p, cfg: ModelConfig, x: torch.Tensor):
+    """The router's probabilities (B,S,E) fp32 and each token's top-k
+    weights (renormalised) and experts (B,S,K). Among equal probabilities
+    the lower expert comes first, as ``jax.lax.top_k`` takes them: a stable
+    descending sort, cut to K. No caller draws the router's jitter (the
+    JAX package's models pass no key for it either)."""
+    K = cfg.top_k
+    logits = (x @ p["router"].to(x.dtype)).float()               # (B,S,E)
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_idx = vals[..., :K], idx[..., :K]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_w, top_idx
+
+
+def _router_entropy(probs: torch.Tensor) -> torch.Tensor:
+    return -torch.mean(torch.sum(probs * torch.log(probs + 1e-9), -1))
+
+
+def _with_shared(p, cfg: ModelConfig, y: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    if "shared" in p:
+        y = y + ffn_forward(p["shared"], cfg.replace(ffn_activation="swiglu"),
+                            x)
+    return y
+
+
+def moe_forward(p, cfg: ModelConfig, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, MoEAux]:
+    if cfg.moe_dispatch == "capacity":
+        return moe_forward_capacity(p, cfg, x)
+    return moe_forward_dense(p, cfg, x)
+
+
+def moe_forward_dense(p, cfg: ModelConfig, x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, MoEAux]:
+    """x: (B,S,d). Dense one-hot dispatch: every expert runs on every token
+    and the combine weights (zero off a token's top k) mask the result.
+    Computes E/top_k times the routed FLOPs, as the JAX package's baseline
+    does."""
+    B, S, D = x.shape
+    E = cfg.num_experts
+    N = B * S
+    probs, top_w, top_idx = route(p, cfg, x)
+    onehot = (top_idx[..., None] == torch.arange(E, device=x.device)).float()
+    combine = (onehot * top_w[..., None]).sum(-2)                # (B,S,E)
+    xe = x.reshape(N, D)[None].expand(E, N, D)
+    gate = _mm_f32(xe, p["w_gate"])                              # (E,N,F)
+    up = _mm_f32(xe, p["w_in"])
+    h = ffn_act(gate, up, "swiglu") * combine.reshape(N, E).t()[..., None]
+    F_ = h.shape[-1]
+    y = _mm_f32(h.transpose(0, 1).reshape(N, E * F_),
+                p["w_out"].reshape(E * F_, D))
+    y = _with_shared(p, cfg, y.reshape(B, S, D).to(x.dtype), x)
+    # Switch-style load-balance loss: E * sum_e f_e * P_e
+    f = (combine > 0).float().mean(dim=(0, 1))                   # routed share
+    lb = E * torch.sum(f * probs.mean(dim=(0, 1)))
+    return y, MoEAux(load_balance_loss=lb,
+                     router_entropy=_router_entropy(probs))
+
+
+def capacity_slots(e_flat: torch.Tensor, num_experts: int, capacity: int):
+    """(slot, keep) of each of the N*K assignments ``e_flat`` (token-major):
+    its arrival-order rank within its expert, kept below ``capacity`` at
+    buffer row expert * capacity + rank; the rest are dropped to the spare
+    row num_experts * capacity."""
+    E, C = num_experts, capacity
+    onehot = (e_flat[:, None] == torch.arange(E, device=e_flat.device)).long()
+    rank = torch.cumsum(onehot, dim=0).gather(1, e_flat[:, None])[:, 0] - 1
+    keep = rank < C
+    return torch.where(keep, e_flat * C + rank, E * C), keep
+
+
+def moe_forward_capacity(p, cfg: ModelConfig, x: torch.Tensor
+                         ) -> Tuple[torch.Tensor, MoEAux]:
+    """Capacity dispatch: each expert's tokens go into a buffer of
+    C = ceil(N*K/E) * capacity_factor rows (from the static shapes), the
+    expert FFNs run on (E, C, d), and assignments past an expert's capacity
+    are dropped (the shared experts still serve those tokens). Each token
+    sums its K contributions in a fixed order (no atomics), so a replay of
+    the step equals it bit for bit."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    N = B * S
+    probs, top_w, top_idx = route(p, cfg, x)
+    xf = x.reshape(N, D)
+    e_flat = top_idx.reshape(N * K)
+    w_flat = top_w.reshape(N * K)
+    tok_ids = torch.arange(N * K, device=x.device) // K
+    C = max(int(-(-N * K // E) * cfg.capacity_factor), 1)
+    slot, keep = capacity_slots(e_flat, E, C)
+    buf = torch.zeros((E * C + 1, D), dtype=xf.dtype, device=x.device)
+    buf[slot] = torch.where(keep[:, None], xf[tok_ids], 0)
+    xe = buf[:E * C].reshape(E, C, D)
+    gate = _mm_f32(xe, p["w_gate"])
+    up = _mm_f32(xe, p["w_in"])
+    ye = _mm_f32(ffn_act(gate, up, "swiglu"), p["w_out"]).reshape(E * C, D)
+    contrib = torch.where(keep[:, None],
+                          ye[torch.clamp(slot, max=E * C - 1)]
+                          * w_flat[:, None], 0.0).reshape(N, K, D)
+    y = contrib[:, 0]
+    for k in range(1, K):
+        y = y + contrib[:, k]
+    y = _with_shared(p, cfg, y.reshape(B, S, D).to(x.dtype), x)
+    # fraction of tokens routed to each expert (matches the dense path)
+    onehot = (top_idx[..., None] == torch.arange(E, device=x.device)).float()
+    f = onehot.mean(dim=(0, 1, 2)) * K
+    lb = E * torch.sum(f * probs.mean(dim=(0, 1)))
+    return y, MoEAux(load_balance_loss=lb,
+                     router_entropy=_router_entropy(probs))
 
 
 # ---------------------------------------------------------------------------

@@ -297,11 +297,13 @@ class RopeTables(NamedTuple):
 def model_rope(cfg: ModelConfig,
                positions: torch.Tensor) -> Optional[RopeTables]:
     """The tables of ``positions`` (broadcastable to (..., seq)) that a
-    model's attention layers share, None without rope."""
+    model's attention layers share, None without rope. They rotate the
+    width that the model's attention rotates: ``qk_rope_head_dim`` under
+    MLA, ``head_dim`` otherwise."""
     if not cfg.use_rope:
         return None
-    freqs = rope_frequencies(cfg.head_dim, cfg.rope_theta,
-                             device=positions.device)
+    width = cfg.qk_rope_head_dim if cfg.use_mla else cfg.head_dim
+    freqs = rope_frequencies(width, cfg.rope_theta, device=positions.device)
     angles = positions[..., :, None].float() * freqs      # (..., seq, hd/2)
     return RopeTables(sin=torch.sin(angles)[..., :, None, :],
                       cos=torch.cos(angles)[..., :, None, :])

@@ -1,7 +1,7 @@
 """Model factory: ModelConfig -> model object with the uniform contract.
-The port has the dense decoder-only, SSM (Mamba-2) and hybrid
-(RecurrentGemma) families; the encoder-decoder family of ``repro.models``
-is not ported yet."""
+The port has the dense and MoE decoder-only (GQA or MLA attention), SSM
+(Mamba-2) and hybrid (RecurrentGemma) families; the encoder-decoder family
+of ``repro.models`` is not ported yet."""
 from __future__ import annotations
 
 from repro_torch.models.common import ModelConfig

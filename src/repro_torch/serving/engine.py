@@ -184,6 +184,18 @@ class SimBackend:
 PREFILL_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 
+def _decode_body(model, params, token, cache, pos) -> torch.Tensor:
+    """One decode step on a backend's static inputs: what its decode graph
+    captures. Writes the cache in place; returns the logits."""
+    return model.decode_step(params, token, cache, pos)[0]
+
+
+def _prefill_body(model, params, tokens) -> torch.Tensor:
+    """The forward of a prefill bucket's zero tokens: what its graph
+    captures."""
+    return model.forward(params, tokens)[0]
+
+
 class TorchBackend:
     """Real-execution backend: runs the port's model on the card per
     iteration and prices energy off measured wall time, the counterpart of
@@ -256,29 +268,23 @@ class TorchBackend:
         if on_card:
             build_kernels()
             pool = torch.cuda.graph_pool_handle()
+        # the bodies hold the model and its static inputs, not the backend:
+        # no reference cycle, so a backend let go frees its memory at once
         with torch.no_grad():
-            self.decode_graph = StepGraph(self._decode_body, self.device,
-                                          pool, "decode_step")
+            self.decode_graph = StepGraph(
+                functools.partial(_decode_body, self.model, self.params,
+                                  self.token, self.cache, self.pos),
+                self.device, pool, "decode_step")
             self.prefill_graphs = {
-                n: StepGraph(functools.partial(self._prefill_body, n),
+                n: StepGraph(functools.partial(_prefill_body, self.model,
+                                               self.params, tokens),
                              self.device, pool, f"forward at {n} tokens")
-                for n in PREFILL_BUCKETS}
+                for n, tokens in self._prefill_tokens.items()}
         if on_card:
             # the warm-ups stepped the cache: start it from zeros again
             for t in tree_tensors(self.cache):
                 t.zero_()
             torch.cuda.synchronize(self.device)
-
-    def _decode_body(self) -> torch.Tensor:
-        """One decode step on the static inputs: what the decode graph
-        captures. Writes the cache in place; returns the logits."""
-        return self.model.decode_step(self.params, self.token, self.cache,
-                                      self.pos)[0]
-
-    def _prefill_body(self, n: int) -> torch.Tensor:
-        """The forward of an ``n``-token bucket's zero tokens: what its
-        graph captures."""
-        return self.model.forward(self.params, self._prefill_tokens[n])[0]
 
     @property
     def graphs(self) -> List[StepGraph]:

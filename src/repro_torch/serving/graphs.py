@@ -20,6 +20,7 @@ every launch that ran, eager or replayed.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Optional
 
@@ -59,10 +60,17 @@ class StepGraph:
             self.fn()
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
+        # Python's cyclic collector must not run inside the capture: freeing
+        # garbage that holds CUDA graphs or memory there is an operation a
+        # capture forbids, and the capture fails (on the H100 a later
+        # cuBLAS call reported it). Collect now, and pause it until the
+        # capture ends.
+        gc.collect()
         torch.cuda.empty_cache()      # as the capture's own entry does
         reserved = torch.cuda.memory_reserved(device)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=pool):
                 self.output = self.fn()
@@ -70,6 +78,8 @@ class StepGraph:
         except Exception as e:
             raise RuntimeError(
                 f"capturing {self.name} as a CUDA graph failed: {e}") from e
+        finally:
+            gc.enable()
         after = launch_counts()
         self.launches = {k: n - before[k] for k, n in after.items()
                          if n != before[k]}

@@ -26,7 +26,8 @@ from repro_torch.serving import BatchPlan, Request, TorchBackend
 from repro_torch.serving.engine import PREFILL_BUCKETS
 from repro_torch.serving.graphs import StepGraph
 
-ARCHS = ["llama3-3b", "mamba2-1.3b", "recurrentgemma-9b"]
+ARCHS = ["llama3-3b", "mamba2-1.3b", "recurrentgemma-9b",
+         "deepseek-v2-lite-16b", "llama4-scout-17b-a16e"]
 DECODE_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
@@ -42,7 +43,8 @@ def _cfg(arch, dtype="float32"):
 def test_decode_body_on_the_static_cache_matches_eager(arch, dtype):
     """Four steps of the decode graph's body (eager on the CPU) against
     ``decode_step`` on a copy of the same random cache: logits and every
-    cache tensor equal. The hybrid's rows at 29 and 30 cross its 32-slot
+    cache tensor equal (deepseek's: its prefix layer's latents and the
+    stacked ones). The hybrid's rows at 29 and 30 cross its 32-slot
     ring."""
     cfg = _cfg(arch, dtype)
     backend = TorchBackend(cfg, max_batch=4, cache_len=64, device="cpu")

@@ -108,8 +108,8 @@ def _unfused_run(tm, params, toks, cache=None, pos=None, max_len=None):
             x, pending, _ = tm._layer_decode(
                 lp, x, None, attn.KVCache(k=st.k[i], v=st.v[i]), slots, rope)
         else:
-            x, pending, c = tm._layer_full(lp, x, None, rope,
-                                           cache_len=max_len)
+            x, pending, c, _ = tm._layer_full(lp, x, None, rope,
+                                              cache_len=max_len)
             caches.append(c)
         x = x + pending
     if max_len is None:
@@ -211,16 +211,8 @@ def test_sliding_window_cache_matches_jax():
 
 
 def test_unported_families_raise():
-    for arch in ("deepseek-v2-lite-16b", "llama4-scout-17b-a16e",
-                 "whisper-medium"):
-        with pytest.raises(NotImplementedError):
-            build_model(get_config(arch).reduced())
-    cfg = get_config("tinyllama-1.1b").reduced().replace(
-        ref_attention="chunked")
-    m = build_model(cfg)
-    params = m.init(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError):
-        m.forward(params, torch.zeros((1, 1024), dtype=torch.long))
+        build_model(get_config("whisper-medium").reduced())
 
 
 def test_init_is_seeded_and_shaped():
