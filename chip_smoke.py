@@ -58,11 +58,27 @@ failure, or when there is no card or no checkout beside it. Phases:
    as many of the port's kernels as the launch counts say ran (a replay:
    as many as its capture recorded), or it is taken again, 5 times in
    all, before the run fails.
+5. The paper's workload: the whole 30 s Azure 2024 trace (seed 0; prompt
+   and output lengths as drawn, nothing cut) through ``InferenceEngine``
+   on one bf16 ``TorchBackend`` of full-width llama3-3b (all 28 layers),
+   four times from a zeroed cache: under ``agft``, ``agft-2d``,
+   ``greenllm-rule`` (the two phased policies; the backend has no
+   ``execute_phased``, so each iteration runs at its dominant phase's
+   clock) and ``static`` at f_max, each at the registry's default 0.8 s
+   window. Each run prints the serve CLI's summary
+   (``repro_torch.launch.serve.summarize``), energy per token, its
+   iterations, forwards and decode steps, the median graphed decode step,
+   its wall time and its frequency history. It fails unless every request
+   finishes at its own length, every policy decided (AGFT for at least one
+   round), the phased policies left the engine in phased mode (every
+   ``agft-2d`` decision a ``(f_prefill, f_decode)`` pair), and each
+   kernel launched as the path says.
 
 The last lines are a JSON object with each kernel's numbers (a row per
 kernel and timed shape; its launches are those of the serve runs whose
-path runs that shape, also given per model) and the result line
-``{"ok": true, "device": {...}}``.
+path runs that shape, also given per model, phase 5's under
+``"llama3-3b azure"``) and the result line ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -139,14 +155,19 @@ FP32_LAYERS = {"recurrentgemma-9b": 5, "deepseek-v2-lite-16b": 3}
 # the shallow bf16 check: 2 layers (a hybrid: a unit and its tail), where
 # a rounding flip has not yet grown through the depth
 BF16_CUT_LAYERS = 2
+# phase 5: the whole of this Azure trace, served by llama3-3b at full width
+# and depth under each policy, from a zeroed cache
+AZURE = {"duration_s": 30.0, "base_rate": 1.0, "year": 2024, "seed": 0}
+AZURE_POLICIES = ("agft", "agft-2d", "greenllm-rule", "static")
+AZURE_RUN = "llama3-3b azure"      # phase 5's key in the kernels line
 # each timed row of the kernels line: its kernel, and the serve runs whose
 # path launches that kernel at the row's shape (the row counts theirs)
-ROWS = {"rmsnorm": ("rmsnorm", MODELS),
-        "add_rmsnorm": ("rmsnorm_fused", MODELS),
-        "flash_attention": ("flash_attention", ("llama3-3b",)),
+ROWS = {"rmsnorm": ("rmsnorm", MODELS + (AZURE_RUN,)),
+        "add_rmsnorm": ("rmsnorm_fused", MODELS + (AZURE_RUN,)),
+        "flash_attention": ("flash_attention", ("llama3-3b", AZURE_RUN)),
         "flash_attention_g5": ("flash_attention",
                                ("llama4-scout-17b-a16e",)),
-        "decode_attention": ("decode_attention", ("llama3-3b",)),
+        "decode_attention": ("decode_attention", ("llama3-3b", AZURE_RUN)),
         "decode_attention_g5": ("decode_attention",
                                 ("llama4-scout-17b-a16e",)),
         "decode_attention_d256_g16": ("decode_attention",
@@ -958,8 +979,9 @@ def graphs_and_serve(torch, dev, cfg):
     say(f"  weight floor of a step: {nbytes / 1e9:.2f} GB of weights once "
         f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
         f"{1e3 * nbytes / HBM_BYTES_PER_S:.3f} ms")
-    counts = serve(torch, backend, "agft")
-    serve(torch, backend, "static")
+    counts = serve(torch, backend, "agft", normal_requests(),
+                   sampling_period_s=0.2)
+    serve(torch, backend, "static", normal_requests(), sampling_period_s=0.2)
     trace_steps(torch, backend)
     if cfg.num_experts:
         step_parts(torch, backend)
@@ -1064,24 +1086,34 @@ def check_graphs(torch, dev, backend, steps: int = 3):
              "the eager step: " + "; ".join(bad))
 
 
-def serve(torch, backend, policy_name):
-    """8 ``normal`` requests through ``InferenceEngine`` on ``backend`` under
-    a registered policy (``static``: pinned at f_max), from a zeroed cache,
-    with the launch checks of the path; returns the run's launch counts."""
-    from repro_torch.energy import H100
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import tree_tensors
-    from repro_torch.policies import get_policy
-    from repro_torch.serving import EngineConfig, InferenceEngine
+def normal_requests():
+    """Phase 4's 8 ``normal`` requests, outputs cut to 64 tokens."""
     from repro_torch.workloads import PROTOTYPES, generate_requests
-    cfg = backend.cfg
-    eng = InferenceEngine(cfg, EngineConfig(max_num_seqs=8), hardware=H100,
-                          backend=backend)
-    kw = {"frequency_mhz": H100.f_max} if policy_name == "static" else {}
-    tuner = get_policy(policy_name, H100, sampling_period_s=0.2, **kw)
     reqs = generate_requests(PROTOTYPES["normal"], 8, seed=0)
     for r in reqs:
         r.output_len = min(r.output_len, 64)
+    return reqs
+
+
+def serve(torch, backend, policy_name, reqs, **policy_kw):
+    """``reqs`` through ``InferenceEngine`` on ``backend`` under a
+    registered policy (``static``: pinned at f_max), from a zeroed cache,
+    with the checks of the path: every request finishes at its own length,
+    the policy decides (AGFT for a round at least; a phased policy leaves
+    the engine in phased mode, every ``agft-2d`` decision a pair), and each
+    kernel launches as ``path_launches`` says; returns the launch counts."""
+    from repro_torch.energy import H100
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import summarize
+    from repro_torch.models import tree_tensors
+    from repro_torch.policies import get_policy
+    from repro_torch.serving import EngineConfig, InferenceEngine
+    cfg = backend.cfg
+    eng = InferenceEngine(cfg, EngineConfig(max_num_seqs=8), hardware=H100,
+                          backend=backend)
+    if policy_name == "static":
+        policy_kw["frequency_mhz"] = H100.f_max
+    tuner = get_policy(policy_name, H100, **policy_kw)
     eng.submit(reqs)
     for t in tree_tensors(backend.cache):
         t.zero_()
@@ -1099,22 +1131,31 @@ def serve(torch, backend, policy_name):
     dec = backend.decode_steps - dec0
     walls = backend.decode_wall_s[walls0:]
     step_ms = 1e3 * statistics.median(walls) if walls else float("nan")
-    say(f"  {cfg.name} under {policy_name}: {c.iterations_total} iterations "
-        f"({len(lengths)} prefill forwards, {dec} decode steps) in "
-        f"{wall:.2f} s wall; median decode step {step_ms:.3f} ms (graph)")
+    say(f"  {cfg.name} under {policy_name} (window "
+        f"{tuner.monitor.sampling_period_s} s): {c.iterations_total} "
+        f"iterations ({len(lengths)} prefill forwards, {dec} decode steps) "
+        f"in {wall:.2f} s wall, {eng.clock:.3f} s on the engine's clock; "
+        f"median decode step {step_ms:.3f} ms (graph)")
     tokens = c.generation_tokens_total
     e_tok = c.energy_joules_total / max(tokens, 1)
     edp = c.energy_joules_total * c.busy_seconds_total / max(tokens, 1)
-    say(f"  finished {len(eng.finished)}/8, energy {c.energy_joules_total:.3f}"
-        f" J (DVFS model), {tokens} tokens: {e_tok:.6f} J/token, EDP "
-        f"{edp:.6f} J s (energy x busy s / token); policy decisions "
-        f"{len(tuner.history)}")
+    say(f"  finished {len(eng.finished)}/{len(reqs)}, energy "
+        f"{c.energy_joules_total:.3f} J (DVFS model), {tokens} tokens: "
+        f"{e_tok:.6f} J/token, EDP {edp:.6f} J s (energy x busy s / token);"
+        f" policy decisions {len(tuner.history)}")
+    say(f"  summary (launch.serve.summarize): "
+        f"{json.dumps(summarize(eng, tuner))}")
     say(f"  frequency history (MHz): "
         f"{[h['freq'] for h in tuner.history]}")
+    phased = getattr(tuner, "phased", False)
+    if phased:
+        say(f"  engine.freq_targets (f_prefill, f_decode): "
+            f"{eng.freq_targets}")
     say(f"  kernel launches on the serve path: {counts}")
-    say(f"  prefill lengths: {lengths}")
+    say(f"  prefill lengths (bucket: forwards): "
+        f"{ {n: lengths.count(n) for n in sorted(set(lengths))} }")
     checks = {
-        "all 8 requests finished": len(eng.finished) == 8,
+        f"all {len(reqs)} requests finished": len(eng.finished) == len(reqs),
         "generated == output_len": all(r.generated == r.output_len
                                        for r in eng.finished),
         "energy > 0": c.energy_joules_total > 0,
@@ -1122,6 +1163,14 @@ def serve(torch, backend, policy_name):
     }
     if policy_name == "agft":
         checks["tuner.round >= 1"] = tuner.round >= 1
+    if phased:
+        checks["engine in phased mode (freq_targets a pair)"] = \
+            isinstance(eng.freq_targets, tuple) and \
+            len(eng.freq_targets) == 2
+    if policy_name == "agft-2d":
+        checks["every decision a (f_prefill, f_decode) pair"] = all(
+            isinstance(h["freq"], tuple) and len(h["freq"]) == 2
+            for h in tuner.history)
     want = path_launches(cfg, lengths, dec)
     for name, n in counts.items():
         checks[f"{name} launches == {want.get(name, 0)}"] = \
@@ -1130,8 +1179,7 @@ def serve(torch, backend, policy_name):
         counts[name] > 0 for name in want)
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        fail(f"{cfg.name} serve phase under {policy_name}: "
-             + "; ".join(bad))
+        fail(f"{cfg.name} serve under {policy_name}: " + "; ".join(bad))
     return counts
 
 
@@ -1234,6 +1282,48 @@ def trace_steps(torch, backend, steps: int = 4, timed: int = 20):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the paper's workload
+# ---------------------------------------------------------------------------
+
+def azure_trace():
+    from repro_torch.workloads import generate_azure_trace
+    return generate_azure_trace(AZURE["duration_s"],
+                                base_rate=AZURE["base_rate"],
+                                year=AZURE["year"], seed=AZURE["seed"])
+
+
+def serve_azure(torch, dev):
+    """Phase 5: the Azure trace under each of ``AZURE_POLICIES`` on one
+    bf16 backend of full-width llama3-3b; returns the runs' launch counts,
+    summed."""
+    from repro_torch.energy import H100
+    from repro_torch.serving import TorchBackend
+    t0 = time.perf_counter()
+    reqs = azure_trace()
+    prompts = [r.prompt_len for r in reqs]
+    outs = [r.output_len for r in reqs]
+    say(f"  trace: generate_azure_trace({AZURE['duration_s']}, base_rate="
+        f"{AZURE['base_rate']}, year={AZURE['year']}, seed={AZURE['seed']})"
+        f": {len(reqs)} requests, prompt length median "
+        f"{statistics.median(prompts)}, max {max(prompts)}, "
+        f"{sum(prompts)} in all; output length {min(outs)}-{max(outs)}, "
+        f"{sum(outs)} in all")
+    cfg = model_config("llama3-3b")
+    backend = TorchBackend(cfg, H100, max_batch=8, cache_len=2048,
+                           device=dev)
+    torch.cuda.synchronize()
+    say(f"  {cfg.name} {cfg.dtype} at {cfg.num_layers} layers: backend "
+        f"ready in {time.perf_counter() - t0:.1f} s")
+    total = {}
+    for name in AZURE_POLICIES:    # each at the registry's window
+        for k, n in serve(torch, backend, name, azure_trace()).items():
+            total[k] = total.get(k, 0) + n
+    say(f"  phase 5: {time.perf_counter() - t0:.1f} s wall, backend "
+        f"included; launches of the four runs: {total}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def model_config(name):
     """The model's config at full width, at the depth one card holds."""
@@ -1286,6 +1376,11 @@ def main() -> None:
         counts[name] = graphs_and_serve(torch, dev, model_config(name))
         torch.cuda.empty_cache()
 
+    say("== phase 5: the Azure 2024 trace, llama3-3b under agft, agft-2d, "
+        "greenllm-rule and static")
+    counts[AZURE_RUN] = serve_azure(torch, dev)
+    torch.cuda.empty_cache()
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "x_library", "x_bound", "kernel_us", "launches_by_model",
@@ -1295,7 +1390,7 @@ def main() -> None:
         r["launches_by_model"] = {m: counts[m][kernel] for m in models}
         r["launches"] = sum(r["launches_by_model"].values())
     for kernel in counts[MODELS[0]]:     # each serve launch is in one row
-        if sum(counts[m][kernel] for m in MODELS) != sum(
+        if sum(counts[m][kernel] for m in counts) != sum(
                 r["launches"] for r in rows if ROWS[r["name"]][0] == kernel):
             fail(f"{kernel}: serve launches missing from the kernels line")
     say(f"card: {card}")

@@ -11,10 +11,10 @@ events —
 ``ITERATION``        an engine with schedulable work runs one
                      continuous-batching iteration, then its per-node
                      policy gets the iteration-complete callback
-``FLEET_TICK``       a fleet-scope policy (:class:`repro.policies.fleet.
+``FLEET_TICK``       a fleet-scope policy (:class:`repro_torch.policies.fleet.
                      FleetPolicy`) samples aggregated telemetry on its own
                      cadence
-``ROUTE``            the router's dispatch pipe (:class:`repro.serving.
+``ROUTE``            the router's dispatch pipe (:class:`repro_torch.serving.
                      network.DeliverySchedule`) delivers priced requests
                      to their engines: an arrival is *rescheduled* from
                      its submit-time placement to its network delivery
@@ -34,7 +34,7 @@ events —
                      trajectory); pure-tick trajectories are pinned by
                      their own golden (``tests/golden_agft_decisions_
                      tick.json``)
-``NODE_FAULT`` /     a bound :class:`repro.serving.faults.FaultModel`'s
+``NODE_FAULT`` /     a bound :class:`repro_torch.serving.faults.FaultModel`'s
 ``NODE_RECOVER``     next transition fires: node crashes (in-flight and
                      queued work evacuated and re-routed with exponential
                      backoff under a bounded retry budget), recoveries
@@ -47,7 +47,7 @@ events —
                      of these paths execute and the loop is byte-
                      identical to the healthy simulation
 
-Hierarchical power capping rides on FLEET_TICK (``repro.policies.
+Hierarchical power capping rides on FLEET_TICK (``repro_torch.policies.
 hierarchy``): when the fleet policy declares ``coordinates_bands``, the
 loop propagates its per-node ``bands`` after every tick — calling each
 node policy's optional ``set_band(f_lo, f_hi)`` hook and clamping the
@@ -134,7 +134,7 @@ class EventLoop:
     (optional) receives ``act(engines, now)`` ticks every
     ``fleet_policy.sampling_period_s`` sim-seconds while any node is live
     or deliveries are in flight. ``router`` (optional, a
-    :class:`repro.serving.network.DeliverySchedule`) feeds ROUTE events:
+    :class:`repro_torch.serving.network.DeliverySchedule`) feeds ROUTE events:
     deliveries land in engine arrival heaps at their priced network
     delivery times, superseding stale node events and reviving drained
     nodes. ``policy_tick_mode="tick"`` moves node-policy decisions onto
@@ -154,11 +154,6 @@ class EventLoop:
             raise ValueError(
                 f"policy_tick_mode must be one of {POLICY_TICK_MODES}, "
                 f"got {policy_tick_mode!r}")
-        if router is not None:
-            # the delivery-schedule network model is not ported yet
-            raise NotImplementedError(
-                "repro_torch has no serving.network: routed delivery "
-                "schedules are not supported")
         self.nodes = list(nodes)
         self.fleet_policy = fleet_policy
         self.router = router
@@ -172,7 +167,7 @@ class EventLoop:
         self.steps = 0
         self.counts: Dict[EventKind, int] = {k: 0 for k in EventKind}
         # power-budget accounting (active when the fleet policy declares a
-        # cap; see repro.policies.hierarchy)
+        # cap; see repro_torch.policies.hierarchy)
         self._power_cap = getattr(fleet_policy, "power_cap_w", None)
         self.cap_violation_s = 0.0
         self.metered_s = 0.0
@@ -189,7 +184,7 @@ class EventLoop:
         for i in range(len(self.nodes)):
             if self._schedule_node(i):
                 self._live += 1
-        # fault injection (repro.serving.faults): an ACTIVE model turns
+        # fault injection (repro_torch.serving.faults): an ACTIVE model turns
         # the loop into a NODE_FAULT/NODE_RECOVER consumer; an absent or
         # all-zero model leaves every healthy path byte-identical
         self.faults = None
@@ -210,9 +205,8 @@ class EventLoop:
             if self.router is None:
                 # crash evacuation re-routes through a delivery schedule
                 # even when no network model is configured
-                raise NotImplementedError(
-                    "repro_torch has no serving.network: fault "
-                    "evacuation needs a delivery schedule")
+                from repro_torch.serving.network import DeliverySchedule
+                self.router = DeliverySchedule()
             self._arm_fault_event()
         if self.router is not None:
             nxt = self.router.next_time()
@@ -304,7 +298,7 @@ class EventLoop:
     def _router_pending(self) -> bool:
         return self.router is not None and self.router.next_time() is not None
 
-    # -- hierarchical power capping (repro.policies.hierarchy) ---------
+    # -- hierarchical power capping (repro_torch.policies.hierarchy) ---------
     def _propagate_bands(self, bands) -> None:
         """Deliver per-node frequency bands: hand each band to the node
         policy's optional ``set_band`` hook and clamp the engine's current
@@ -441,7 +435,7 @@ class EventLoop:
         else:
             self._tick_alive[i] = False
 
-    # -- fault injection (repro.serving.faults) ------------------------
+    # -- fault injection (repro_torch.serving.faults) ------------------------
     def _work_remains(self) -> bool:
         """Does the loop still owe anyone service? Under faults, a fully
         dark fleet holding unserved requests must keep its fault (and

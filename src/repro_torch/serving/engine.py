@@ -10,9 +10,21 @@ either transparently through ``set_frequency``.
 
 The engine is a discrete-event process: future arrivals live in a heap
 (O(log n) ``submit``, no re-sorts), and ``next_event_time`` tells the
-event-scheduled driver (``repro_torch.serving.driver``) when this engine
-next does anything. The routed ``deliver`` path exists as in the
-reference, but the network model that feeds it is not ported yet.
+event-scheduled driver (``repro_torch.serving.driver``) when this engine next
+does anything — now, if the scheduler holds work; at the next arrival, if
+it is idle. ``step`` = (idle-advance to that arrival, billing idle energy)
++ ``run_iteration``; both halves are public so event loops can drive them
+separately.
+
+Requests reach the arrival heap by one of two paths: ``submit`` (direct
+placement, keyed by the request's own arrival time — the historical
+instant-materialization model) or ``deliver`` (the routed path: a
+:class:`repro_torch.serving.network.NetworkModel` priced the request's network
+delivery time and the event loop hands it over on a ROUTE event). A
+request routed to this engine but still traversing the network is counted
+in ``inflight``; queue-depth telemetry (``requests_waiting``) and router
+load (``num_pending``) include it, so a zero-delay network is
+indistinguishable — bit-for-bit — from direct submit.
 """
 from __future__ import annotations
 

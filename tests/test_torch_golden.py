@@ -11,10 +11,12 @@ import os
 import pytest
 
 import repro.configs
+import repro.core
 import repro.energy
 import repro.serving
 import repro.workloads
 import repro_torch.configs
+import repro_torch.core
 import repro_torch.energy
 import repro_torch.serving
 import repro_torch.workloads
@@ -38,8 +40,8 @@ def _engine_and_tuner():
     return eng, AGFTTuner(A6000)
 
 
-def _render(eng, tuner, mode=None) -> str:
-    out = {
+def _payload(eng, tuner) -> dict:
+    return {
         "trace": dict(TRACE),
         "freqs": [h["freq"] for h in tuner.history],
         "phases": [h["phase"] for h in tuner.history],
@@ -47,9 +49,33 @@ def _render(eng, tuner, mode=None) -> str:
         "energy_j": eng.metrics.c.energy_joules_total,
         "clock": eng.clock,
     }
-    if mode:
-        out["mode"] = mode
-    return json.dumps(out, indent=1)
+
+
+def generate() -> dict:
+    """The iteration-gated trajectory, through the port."""
+    eng, tuner = _engine_and_tuner()
+    eng.drain(policy=tuner)
+    return _payload(eng, tuner)
+
+
+def generate_tick() -> dict:
+    """The pure POLICY_TICK trajectory, through the port."""
+    eng, tuner = _engine_and_tuner()
+    EventLoop([EngineNode(eng, tuner)], policy_tick_mode="tick").run()
+    out = _payload(eng, tuner)
+    out["mode"] = "tick"
+    return out
+
+
+def render(payload: dict) -> str:
+    """The committed files' byte encoding (``tests/generate_golden.py``)."""
+    return json.dumps(payload, indent=1)
+
+
+#: the port's counterpart of ``generate_golden.GOLDENS``
+GOLDENS = ((os.path.join(HERE, "golden_agft_decisions.json"), generate),
+           (os.path.join(HERE, "golden_agft_decisions_tick.json"),
+            generate_tick))
 
 
 @pytest.mark.parametrize("mode,golden", [
@@ -57,13 +83,7 @@ def _render(eng, tuner, mode=None) -> str:
     ("tick", "golden_agft_decisions_tick.json"),
 ])
 def test_port_reproduces_committed_golden(mode, golden):
-    eng, tuner = _engine_and_tuner()
-    if mode == "iteration":
-        eng.drain(policy=tuner)
-        fresh = _render(eng, tuner)
-    else:
-        EventLoop([EngineNode(eng, tuner)], policy_tick_mode="tick").run()
-        fresh = _render(eng, tuner, mode="tick")
+    fresh = render(generate() if mode == "iteration" else generate_tick())
     with open(os.path.join(HERE, golden)) as f:
         assert fresh == f.read()
 
@@ -99,7 +119,40 @@ def test_sim_engine_iterations_bit_equal_to_reference(arch, hw):
     assert ours == ref
 
 
-def test_unported_network_paths_raise():
-    eng, tuner = _engine_and_tuner()
-    with pytest.raises(NotImplementedError):
-        EventLoop([EngineNode(eng, tuner)], router=object())
+def _routed(configs, core, energy, serving, workloads, spec):
+    """The goldens' trace delivered to one engine through a routed
+    ``EventLoop``: each request priced by ``NetworkModel(spec)`` and handed
+    over from a ``DeliverySchedule`` on its ROUTE event."""
+    eng = serving.InferenceEngine(configs.get_config("llama3-3b"),
+                                  serving.EngineConfig(),
+                                  initial_frequency=energy.A6000.f_max)
+    tuner = core.AGFTTuner(energy.A6000)
+    net = serving.NetworkModel.from_spec(spec, seed=5)
+    sched = serving.DeliverySchedule()
+    for req in sorted(workloads.generate_requests(
+            workloads.PROTOTYPES[TRACE["workload"]], TRACE["n"],
+            base_rate=TRACE["rate"], seed=TRACE["seed"]),
+            key=lambda r: r.arrival_time):
+        req.delivery_time = net.delivery_time(req.arrival_time)
+        eng.inflight += 1
+        sched.push(req.delivery_time, 0, req)
+    serving.EventLoop([serving.EngineNode(eng, tuner)], router=sched).run()
+    return eng, tuner
+
+
+def test_routed_event_loop_matches_golden_and_reference():
+    """The routed path the port once refused: through a zero-delay network
+    it reproduces the committed golden byte for byte, and through ``wan``
+    its trajectory equals ``repro``'s."""
+    mods = (repro_torch.configs, repro_torch.core, repro_torch.energy,
+            repro_torch.serving, repro_torch.workloads)
+    eng, tuner = _routed(*mods, "zero")
+    with open(os.path.join(HERE, "golden_agft_decisions.json")) as f:
+        assert render(_payload(eng, tuner)) == f.read()
+    ours = _routed(*mods, "wan")
+    ref = _routed(repro.configs, repro.core, repro.energy, repro.serving,
+                  repro.workloads, "wan")
+    assert [_payload(*ours)] == [_payload(*ref)]
+    assert len(ours[0].finished) == TRACE["n"]
+    assert ours[0].metrics.c.energy_joules_total != \
+        eng.metrics.c.energy_joules_total

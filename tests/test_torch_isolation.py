@@ -46,15 +46,25 @@ print(" ".join(names))
 '''
 
 # the modules of the SSM and hybrid path, the CUDA graphs and the baseline
-# policies, and those that hold the MoE blocks, MLA, the chunked reference
-# and the MoE/MLA decoder, which the walk must reach
+# policies, those that hold the MoE blocks, MLA, the chunked reference and
+# the MoE/MLA decoder, and the Azure trace, phased tuner, fleet layer and
+# serve CLI, which the walk must reach
 PATH_MODULES = {"repro_torch.kernels.ssd", "repro_torch.kernels.rglru",
                 "repro_torch.models.ssm", "repro_torch.models.hybrid",
                 "repro_torch.serving.graphs", "repro_torch.policies.fixed",
                 "repro_torch.policies.rules", "repro_torch.models.blocks",
                 "repro_torch.models.attention",
                 "repro_torch.models.transformer",
-                "repro_torch.models.convert"}
+                "repro_torch.models.convert",
+                "repro_torch.workloads.azure_trace",
+                "repro_torch.configs.shapes", "repro_torch.energy.phases",
+                "repro_torch.core.tuner2d", "repro_torch.policies.phased",
+                "repro_torch.core.stacked", "repro_torch.policies.fleet",
+                "repro_torch.policies.hierarchy",
+                "repro_torch.serving.network", "repro_torch.serving.faults",
+                "repro_torch.serving.fleet_step",
+                "repro_torch.serving.cluster", "repro_torch.launch",
+                "repro_torch.launch.serve"}
 
 
 def _sources():
@@ -73,7 +83,7 @@ def test_every_module_imports_without_jax_or_repro():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 44 and PATH_MODULES <= names
+    assert len(names) >= 74 and PATH_MODULES <= names
 
 
 def test_cuda_sources_include_only_cuda_headers():
