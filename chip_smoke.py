@@ -25,7 +25,9 @@ failure, or when there is no card or no checkout beside it. Phases:
    with its gate ops launched apart (``unfused_ms``).
    The MoE expert products (bf16 GEMMs with fp32 outputs) at
    deepseek-v2-lite-16b's widths against fp64, as exact as the widened
-   fp32 product, and timed beside it.
+   fp32 product, and timed beside it. Flash and decode attention also at
+   whisper-medium's decoder shapes (16 query heads over 16 kv heads of 64,
+   G = 1; decode against its 448-slot cache), checked and timed last.
 3. Models: full-width llama3-3b, mamba2-1.3b, recurrentgemma-9b,
    deepseek-v2-lite-16b (MoE with MLA) and llama4-scout-17b-a16e (MoE,
    GQA 40/8, cut to 2 layers) from a seeded generator, one at a time;
@@ -73,11 +75,26 @@ failure, or when there is no card or no checkout beside it. Phases:
    round), the phased policies left the engine in phased mode (every
    ``agft-2d`` decision a ``(f_prefill, f_decode)`` pair), and each
    kernel launched as the path says.
+6. whisper-medium, the encoder-decoder, at full width and depth (24
+   encoder + 24 decoder layers, 811,112,448 params, bf16 from a seeded
+   generator) through its model contract (``TorchBackend`` serves
+   decoder-only models, as ``JaxBackend`` does): 8 x 1500 random frames, a
+   4-token prompt, a 448-slot self cache. fp32 logits through the kernels
+   against the plain versions and the prefill->decode contract at 4 + 4
+   layers; bf16 at full depth judged against fp32 as in phase 3. Then the
+   prefill and 64 greedy decode steps, each a replay of the step captured
+   as a ``StepGraph``, the launch counts set to 0 before: flash attention
+   once a decoder layer at the prefill, decode attention once a layer a
+   step, nothing else; the first three replays bit-equal to the eager step,
+   the cross cache unchanged. encode, the prefill and the graphed step
+   timed (median, p90) beside the step's floor, a replay traced, and the
+   step timed by part.
 
 The last lines are a JSON object with each kernel's numbers (a row per
 kernel and timed shape; its launches are those of the serve runs whose
 path runs that shape, also given per model, phase 5's under
-``"llama3-3b azure"``) and the result line ``{"ok": true, "device":
+``"llama3-3b azure"``, phase 6's under ``"whisper-medium"``) and the
+result line ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -160,6 +177,21 @@ BF16_CUT_LAYERS = 2
 AZURE = {"duration_s": 30.0, "base_rate": 1.0, "year": 2024, "seed": 0}
 AZURE_POLICIES = ("agft", "agft-2d", "greenllm-rule", "static")
 AZURE_RUN = "llama3-3b azure"      # phase 5's key in the kernels line
+# phase 6: whisper-medium at full width and depth (24 + 24 layers), driven
+# through its model contract: batch 8 of 1500 frames, Whisper's 4-token
+# start-of-transcript prompt, its 448-token text context, 64 greedy steps
+WHISPER = "whisper-medium"
+WHISPER_PARAMS = 811_112_448
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_MAX_LEN = 8, 4, 448
+WHISPER_STEPS = 64
+WHISPER_CHECKED = 3        # replays held to the eager step bit for bit
+WHISPER_FP32_LAYERS = 4    # the fp32 checks: 4 encoder + 4 decoder layers
+# its decoder's self-attention: 16 query heads over 16 kv heads of 64
+# (G = 1), prefill at 1, 4 and 64 tokens and at the served (8, 4); decode
+# against the 448-slot cache at the loop's valid counts, 5..68
+G1_FLASH = [(1, S, 16, 16, 64) for S in (1, 4, 64)] + [(8, 4, 16, 16, 64)]
+G1_DECODE = (8, WHISPER_MAX_LEN, 16, 16, 64)
+G1_VALID = (WHISPER_PROMPT + 1, WHISPER_PROMPT + WHISPER_STEPS)
 # each timed row of the kernels line: its kernel, and the serve runs whose
 # path launches that kernel at the row's shape (the row counts theirs)
 ROWS = {"rmsnorm": ("rmsnorm", MODELS + (AZURE_RUN,)),
@@ -177,7 +209,9 @@ ROWS = {"rmsnorm": ("rmsnorm", MODELS + (AZURE_RUN,)),
         "rglru_scan": ("rglru_scan", ("recurrentgemma-9b",)),
         "rglru_gated_scan": ("rglru_gated", ("recurrentgemma-9b",)),
         "rglru_gated_scan_step": ("rglru_gated_step",
-                                  ("recurrentgemma-9b",))}
+                                  ("recurrentgemma-9b",)),
+        "flash_attention_g1": ("flash_attention", (WHISPER,)),
+        "decode_attention_g1": ("decode_attention", (WHISPER,))}
 # the rmsnorm row counts every launch of the RMSNorm kernel, the
 # add_rmsnorm row those among them that took the residual add in; the
 # rglru_scan row every launch of the RG-LRU kernel, the two rglru_gated
@@ -230,9 +264,14 @@ def rel_l2(torch, a, b) -> float:
 
 
 def device_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median device time of one call, in ms, from CUDA events. A sleep
-    kernel enqueued first keeps the card busy while the host enqueues the
-    call, so the events bracket device work, not host overhead."""
+    """Median device time of one call, in ms (``device_times``)."""
+    return statistics.median(device_times(torch, fn, reps, warmup))
+
+
+def device_times(torch, fn, reps: int = 30, warmup: int = 3):
+    """The device time of each of ``reps`` calls, in ms, from CUDA events. A
+    sleep kernel enqueued first keeps the card busy while the host enqueues
+    the call, so the events bracket device work, not host overhead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -246,7 +285,7 @@ def device_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
 
 
 def port_events(events):
@@ -316,6 +355,12 @@ def bound_ms(nbytes: float, flops: float, dtype_name: str):
 def randn(torch, gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32).to(dtype)
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of a params or cache tree's tensors."""
+    from repro_torch.models import tree_tensors
+    return sum(t.numel() * t.element_size() for t in tree_tensors(tree))
 
 
 # ---------------------------------------------------------------------------
@@ -451,6 +496,29 @@ def check_kernels(torch, dev):
                    "rglru" if dn == "float32" else None)
             record(row, f"B{B} S{S} W{W} h_last", "float32", hl, hl_r, main,
                    "rglru")
+    # whisper-medium's decoder (G = 1, D 64), from a generator of its own:
+    # flash at its prefill shapes; decode with each row's valid count one of
+    # the decode loop's
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dn, dt in dtypes.items():
+        for (B, S, H, Hkv, D) in G1_FLASH:
+            q = randn(torch, gen, (B, S, H, D), dt)
+            k = randn(torch, gen, (B, S, Hkv, D), dt)
+            v = randn(torch, gen, (B, S, Hkv, D), dt)
+            record("flash_attention_g1", f"B{B} S{S} H{H} Hkv{Hkv} D{D}", dn,
+                   fa.flash_attention(q, k, v, causal=True),
+                   fa.flash_attention_plain(q, k, v, causal=True), True)
+        B, T, H, Hkv, D = G1_DECODE
+        lengths = torch.randint(G1_VALID[0], G1_VALID[1] + 1, (B,),
+                                generator=gen, device=dev)
+        valid = torch.arange(T, device=dev)[None] < lengths[:, None]
+        q = randn(torch, gen, (B, 1, H, D), dt)
+        kc = randn(torch, gen, (B, T, Hkv, D), dt)
+        vc = randn(torch, gen, (B, T, Hkv, D), dt)
+        record("decode_attention_g1", f"B{B} T{T} H{H} Hkv{Hkv} D{D} valid "
+               f"{G1_VALID[0]}-{G1_VALID[1]}", dn,
+               dec.decode_attention(q, kc, vc, valid),
+               dec.decode_attention_plain(q, kc, vc, valid), True)
     torch.cuda.synchronize()
     if failures:
         fail("kernels disagree with their plain versions: "
@@ -559,10 +627,8 @@ def time_kernels(torch, dev, main_err):
         unfused_ms=device_ms(torch, lambda: rms.rmsnorm(x + r, w)),
         kernel_us=kernel_us(torch, lambda: rms.add_rmsnorm(x, r, w)),
         host_us=host_us(torch, lambda: rms.add_rmsnorm(x, r, w))))
-    # flash prefill at the largest prefill bucket: llama3-3b's 24 query
-    # heads over 8, llama4-scout-17b-a16e's 40 over 8
-    for row, (B, S, H, Hkv, Dh) in (("flash_attention", MAIN_FLASH[-1]),
-                                    ("flash_attention_g5", G5_FLASH[-1])):
+    def flash_timing(row, shape):
+        B, S, H, Hkv, Dh = shape
         q = randn(torch, gen, (B, S, H, Dh), bf)
         k = randn(torch, gen, (B, S, Hkv, Dh), bf)
         v = randn(torch, gen, (B, S, Hkv, Dh), bf)
@@ -570,7 +636,7 @@ def time_kernels(torch, dev, main_err):
         nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * Hkv * Dh)
         flops = 4.0 * B * H * Dh * S * (S + 1) / 2
         b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-        rows.append(dict(
+        return dict(
             name=row, route="cuda",
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:65",
@@ -581,15 +647,22 @@ def time_kernels(torch, dev, main_err):
             bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), "flash"),
-            kernel_us=kernel_us(torch, lambda: fa.flash_attention(q, k, v))))
-    def decode_timing(shape, max_len):
+            kernel_us=kernel_us(torch, lambda: fa.flash_attention(q, k, v)))
+
+    # flash prefill at the largest prefill bucket: llama3-3b's 24 query
+    # heads over 8, llama4-scout-17b-a16e's 40 over 8
+    rows.append(flash_timing("flash_attention", MAIN_FLASH[-1]))
+    rows.append(flash_timing("flash_attention_g5", G5_FLASH[-1]))
+
+    def decode_timing(shape, max_len, min_len=1):
         """The decode kernel against a cache of ragged validity: each row
-        holds 1..max_len tokens (past T: a ring that wrapped, all live)."""
+        holds min_len..max_len tokens (past T: a ring that wrapped, all
+        live)."""
         B, T, H, Hkv, Dh = shape
         q = randn(torch, gen, (B, 1, H, Dh), bf)
         kc = randn(torch, gen, (B, T, Hkv, Dh), bf)
         vc = randn(torch, gen, (B, T, Hkv, Dh), bf)
-        lengths = torch.randint(1, max_len + 1, (B,), generator=gen,
+        lengths = torch.randint(min_len, max_len + 1, (B,), generator=gen,
                                 device=dev)
         valid = torch.arange(T, device=dev)[None] < lengths[:, None]
         n_valid = int(valid.sum())
@@ -702,6 +775,15 @@ def time_kernels(torch, dev, main_err):
                                                               *args)),
             kernel_us=kernel_us(torch,
                                 lambda: lru.rglru_gated_scan(*args))))
+    # whisper-medium's decoder (G = 1, D 64): flash at its served prefill
+    # (8 prompts of 4 tokens), decode against its 448-slot cache with each
+    # row's valid count one of the decode loop's
+    rows.append(flash_timing("flash_attention_g1", G1_FLASH[-1]))
+    rows.append(dict(
+        name="decode_attention_g1", route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:57",
+        **decode_timing(G1_DECODE, G1_VALID[1], G1_VALID[0])))
     for r in rows:
         r["max_abs_err"] = main_err[r["name"]]
         r["x_library"] = (None if r["library_ms"] is None
@@ -973,9 +1055,7 @@ def graphs_and_serve(torch, dev, cfg):
             f"{sum(g.memory_bytes for g in graphs) / 2**20:.1f} MiB; a "
             f"decode replay launches {backend.decode_graph.launches}")
         check_graphs(torch, dev, backend)
-    from repro_torch.models import tree_tensors
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in tree_tensors(backend.params))
+    nbytes = tree_bytes(backend.params)
     say(f"  weight floor of a step: {nbytes / 1e9:.2f} GB of weights once "
         f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
         f"{1e3 * nbytes / HBM_BYTES_PER_S:.3f} ms")
@@ -1229,8 +1309,7 @@ def trace_steps(torch, backend, steps: int = 4, timed: int = 20):
     ``steps`` calls (``traced``: the trace must hold every port kernel
     that the launch counts say ran, a graph's as its capture recorded),
     with the device-busy share of the traced wall time, the kernels a
-    call, and the top device kernels and host ops."""
-    from torch.autograd import DeviceType
+    call, and the top device kernels and host ops (``trace_form``)."""
     B, n = backend.max_batch, max(backend.prefill_graphs)
     backend.pos.fill_(600)
     toks = torch.zeros((1, n), dtype=torch.long, device=backend.device)
@@ -1245,40 +1324,52 @@ def trace_steps(torch, backend, steps: int = 4, timed: int = 20):
         f"graph {prefill}": backend.prefill_graphs[n]}
     with torch.no_grad():
         for label, step in forms.items():
-            step()
-            torch.cuda.synchronize()
-            walls = []
-            for _ in range(timed):
-                t0 = time.perf_counter()
-                step()
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            events, wall = traced(torch, step, steps, cpu=True)
-            # CPU ops also carry their kernels' device time: count the
-            # device-side kernel events alone (not the span of the
-            # profiler's step, which is a device-side event too)
-            kernels = [e for e in events if e.device_type != DeviceType.CPU
-                       and not e.key.startswith("ProfilerStep")]
-            busy = sum(e.self_device_time_total for e in kernels) / steps / 1e3
-            say(f"  {label}: median {1e3 * statistics.median(walls):.3f} ms "
-                f"of {timed}; traced wall {1e3 * wall:.3f} ms, device busy "
-                f"{busy:.3f} ms ({100 * busy / (1e3 * wall):.1f}%), "
-                f"{sum(e.count for e in kernels) // steps} kernels")
-            say(f"  {label}: top device kernels per call (ms, launches):")
-            for e in sorted(kernels, key=lambda e: e.self_device_time_total,
-                            reverse=True)[:6]:
-                say(f"    {e.self_device_time_total / steps / 1e3:8.4f}  "
-                    f"{e.count // steps:5d}  {e.key[:90]}")
-            say(f"  {label}: the port's kernels per call (ms, launches; "
-                "all that the counts say ran):")
-            for e in sorted(port_events(events), key=lambda e: e.key):
-                say(f"    {e.self_device_time_total / steps / 1e3:8.4f}  "
-                    f"{e.count // steps:5d}  {e.key[:90]}")
-            say(f"  {label}: top host ops per call (self cpu ms, calls):")
-            for e in sorted(events, key=lambda e: e.self_cpu_time_total,
-                            reverse=True)[:4]:
-                say(f"    {e.self_cpu_time_total / steps / 1e3:8.4f}  "
-                    f"{e.count // steps:5d}  {e.key[:90]}")
+            trace_form(torch, label, step, steps, timed)
+
+
+def trace_form(torch, label, step, steps: int = 4, timed: int = 20):
+    """One form of ``trace_steps``: the median wall time of ``timed`` calls
+    of ``step``, each ended by a synchronize, then ``traced`` over
+    ``steps`` calls, with the busy share, the kernels a call, the top
+    device kernels, the port's kernels and the top host ops; returns the
+    busy ms, the busy share and the kernels a call."""
+    from torch.autograd import DeviceType
+    step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    events, wall = traced(torch, step, steps, cpu=True)
+    # CPU ops also carry their kernels' device time: count the device-side
+    # kernel events alone (not the span of the profiler's step, which is a
+    # device-side event too)
+    kernels = [e for e in events if e.device_type != DeviceType.CPU
+               and not e.key.startswith("ProfilerStep")]
+    busy = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    say(f"  {label}: median {1e3 * statistics.median(walls):.3f} ms "
+        f"of {timed}; traced wall {1e3 * wall:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / (1e3 * wall):.1f}%), "
+        f"{sum(e.count for e in kernels) // steps} kernels")
+    say(f"  {label}: top device kernels per call (ms, launches):")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:6]:
+        say(f"    {e.self_device_time_total / steps / 1e3:8.4f}  "
+            f"{e.count // steps:5d}  {e.key[:90]}")
+    say(f"  {label}: the port's kernels per call (ms, launches; "
+        "all that the counts say ran):")
+    for e in sorted(port_events(events), key=lambda e: e.key):
+        say(f"    {e.self_device_time_total / steps / 1e3:8.4f}  "
+            f"{e.count // steps:5d}  {e.key[:90]}")
+    say(f"  {label}: top host ops per call (self cpu ms, calls):")
+    for e in sorted(events, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:4]:
+        say(f"    {e.self_cpu_time_total / steps / 1e3:8.4f}  "
+            f"{e.count // steps:5d}  {e.key[:90]}")
+    return dict(busy_ms=busy, busy_share=busy / (1e3 * wall),
+                kernels=sum(e.count for e in kernels) // steps)
 
 
 # ---------------------------------------------------------------------------
@@ -1321,6 +1412,283 @@ def serve_azure(torch, dev):
     say(f"  phase 5: {time.perf_counter() - t0:.1f} s wall, backend "
         f"included; launches of the four runs: {total}")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 6: whisper-medium through its model contract
+# ---------------------------------------------------------------------------
+
+def serve_whisper(torch, dev):
+    """Phase 6: full-width whisper-medium (bf16 weights from a seeded
+    generator) on 8 x 1500 random frames and a 4-token prompt. The fp32
+    and bf16 checks (``whisper_checks``), then ``whisper_loop``: encode and
+    prefill, 64 greedy decode steps as a CUDA graph's replays, their
+    launches, the replays held to the eager step, the times and the step by
+    part. Returns the loop's launch counts."""
+    import numpy as np
+    from repro_torch.models import build_model, tree_tensors
+    cfg = model_config(WHISPER)
+    B, P = WHISPER_BATCH, WHISPER_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = build_model(cfg).init(gen)
+        frames = randn(torch, gen, (B, cfg.encoder_seq, cfg.d_model),
+                       torch.bfloat16)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, P + 1))).to(dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tree_tensors(params))
+        say(f"  {cfg.name}: {n_params:,} params ({cfg.encoder_layers} "
+            f"encoder + {cfg.num_layers} decoder layers, d_model "
+            f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}), bf16, "
+            f"{tree_bytes(params) / 1e9:.3f} GB; frames {tuple(frames.shape)}"
+            f", prompt {P} tokens; init {time.perf_counter() - t0:.1f} s")
+        if n_params != WHISPER_PARAMS:
+            fail(f"{cfg.name}: {n_params} params, not the full width's "
+                 f"{WHISPER_PARAMS}")
+        whisper_checks(torch, dev, cfg, params, frames, toks)
+        counts = whisper_loop(torch, dev, cfg, params, frames, toks)
+    del params, frames
+    say(f"  phase 6: {time.perf_counter() - t0:.1f} s wall")
+    return counts
+
+
+def whisper_checks(torch, dev, cfg, params, frames, toks):
+    """fp32, cut to WHISPER_FP32_LAYERS encoder and decoder layers (each
+    bf16 weight widened where it is used): logits through the kernels
+    against the plain versions to FP32_REL_L2, and the prefill->decode
+    contract against the teacher-forced forward at the model tests'
+    tolerances. bf16 at full depth: the kernels' logits no further from the
+    fp32 logits than BF16_VS_PLAIN x the plain versions'."""
+    from repro_torch.models import build_model
+    B, P, L = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_FP32_LAYERS
+    f32 = dict(dtype="float32", param_dtype="float32")
+    c32 = cfg.replace(num_layers=L, encoder_layers=L, **f32)
+    p32 = dict(params, enc_layers=params["enc_layers"][:L],
+               dec_layers=params["dec_layers"][:L])
+    frames32 = frames.float()
+    ker = build_model(c32.replace(use_pallas=True))
+    l32 = build_model(c32).forward(p32, toks, frames32)[0]
+    l32k = ker.forward(p32, toks, frames32)[0]
+    e32 = rel_l2(torch, l32k, l32)
+    say(f"  fp32 logits {tuple(l32.shape)} at {L} + {L} layers (cut from "
+        f"{cfg.encoder_layers} + {cfg.num_layers}): kernels vs plain rel-L2 "
+        f"{e32:.3e} (tol {FP32_REL_L2})")
+    pl, cache = ker.prefill(p32, toks[:, :P], frames32,
+                            max_len=WHISPER_MAX_LEN)
+    pos = torch.full((B,), P, dtype=torch.long, device=dev)
+    dl, _ = ker.decode_step(p32, toks[:, P:], cache, pos)
+    e_pf, ok_pf = close(torch, pl[:, 0], l32k[:, P - 1], "prefill")
+    e_de, ok_de = close(torch, dl[:, 0], l32k[:, P], "decode")
+    say(f"  fp32 prefill->decode contract through the kernels: prefill max "
+        f"abs {e_pf:.3e} (tol {TOL['prefill'][1]}), decode {e_de:.3e} (tol "
+        f"{TOL['decode'][1]})")
+    del cache, l32, l32k
+    if e32 > FP32_REL_L2 or not (ok_pf and ok_de):
+        fail(f"{cfg.name}: fp32 model through the kernels disagrees with the "
+             "plain versions or breaks the prefill->decode contract")
+    l32 = build_model(cfg.replace(**f32)).forward(params, toks, frames32)[0]
+    lk = build_model(cfg.replace(use_pallas=True)).forward(params, toks,
+                                                          frames)[0]
+    lp = build_model(cfg).forward(params, toks, frames)[0]
+    e_k, e_p = rel_l2(torch, lk, l32), rel_l2(torch, lp, l32)
+    say(f"  bf16 logits vs fp32 at {cfg.encoder_layers} + {cfg.num_layers} "
+        f"layers: kernels rel-L2 {e_k:.3e}, plain {e_p:.3e} (kernels <= "
+        f"{BF16_VS_PLAIN} x plain); kernels vs plain "
+        f"{rel_l2(torch, lk, lp):.3e}")
+    if not bool(torch.isfinite(lk).all()) or e_k > BF16_VS_PLAIN * e_p:
+        fail(f"{cfg.name}: bf16 logits through the kernels are further from "
+             "fp32 than the plain versions'")
+
+
+def whisper_loop(torch, dev, cfg, params, frames, toks):
+    """The decode step captured once as a ``StepGraph`` on static token,
+    pos and cache; then, the launch counts set to 0: the prefill (its
+    encoder included), its cache copied into the static one in place, and
+    WHISPER_STEPS greedy steps, each a replay fed the last one's argmax on
+    the card. Fails unless the prefill launched flash attention once a
+    decoder layer, each step decode attention once a layer, and nothing
+    else; the first WHISPER_CHECKED replays equal the eager step bit for
+    bit (logits and the self cache), and the cross cache is unchanged.
+    Then times and traces the path (``whisper_times``)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model, tree_clone, tree_tensors
+    from repro_torch.serving.graphs import StepGraph
+    B, P, L = WHISPER_BATCH, WHISPER_PROMPT, cfg.num_layers
+    model = build_model(cfg.replace(use_pallas=True))
+    static = model.init_cache(B, WHISPER_MAX_LEN, device=dev)
+    token = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    pos = torch.full((B,), P, dtype=torch.long, device=dev)
+    graph = StepGraph(
+        lambda: model.decode_step(params, token, static, pos)[0], dev,
+        name=f"{cfg.name} decode_step")
+    say(f"  decode step captured in {graph.capture_s:.2f} s (warm-up "
+        f"included), holding {graph.memory_bytes / 2**20:.1f} MiB; a replay "
+        f"launches {graph.launches}")
+    torch.cuda.synchronize()
+    reset_launch_counts()                 # count the main path alone
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, toks[:, :P], frames,
+                                  max_len=WHISPER_MAX_LEN)
+    after_prefill = launch_counts()
+    for dst, src in zip(tree_tensors(static), tree_tensors(cache)):
+        dst.copy_(src)
+    token.copy_(logits.argmax(-1))
+    kept = []
+    for step in range(WHISPER_STEPS):
+        out = graph()
+        if step < WHISPER_CHECKED:
+            kept.append((out.clone(), tree_clone(static["self"])))
+        token.copy_(out.argmax(-1))
+        pos.add_(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    finite = bool(torch.isfinite(out).all())
+    say(f"  prefill + {WHISPER_STEPS} graphed greedy steps: {wall:.3f} s "
+        f"wall; launches after the prefill {after_prefill}, after the steps "
+        f"{counts}; last logits finite {finite}; last tokens "
+        f"{token[:, 0].tolist()}")
+    want_prefill = {"flash_attention": L}
+    want = {"flash_attention": L, "decode_attention": L * WHISPER_STEPS}
+    # the first replays against the eager step from the prefill's cache
+    tok = logits.argmax(-1)
+    eager_pos = torch.full((B,), P, dtype=torch.long, device=dev)
+    bad = []
+    for i, (lg, self_c) in enumerate(kept):
+        eager, cache = model.decode_step(params, tok, cache, eager_pos)
+        same = [torch.equal(a, b) for a, b in zip(self_c, cache["self"])]
+        if not (torch.equal(lg, eager) and all(same)):
+            bad.append(f"step {i}: logits {torch.equal(lg, eager)}, self "
+                       f"cache tensors equal {sum(same)}/{len(same)}")
+        tok, eager_pos = eager.argmax(-1), eager_pos + 1
+    cross_same = all(torch.equal(static[k], cache[k])
+                     for k in ("cross_k", "cross_v"))
+    say(f"  graph vs eager, bit for bit: the first {WHISPER_CHECKED} steps' "
+        f"logits and self cache: {'ok' if not bad else bad}; cross cache "
+        f"unchanged by {WHISPER_STEPS} replays: {cross_same}")
+    checks = {
+        f"{n} launches after the prefill == {want_prefill.get(n, 0)}":
+            after_prefill[n] == want_prefill.get(n, 0)
+        for n in after_prefill}
+    checks.update({f"{n} launches == {want.get(n, 0)}":
+                   counts[n] == want.get(n, 0) for n in counts})
+    checks.update({"replays equal the eager steps": not bad,
+                   "cross cache unchanged": cross_same,
+                   "logits finite": finite})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"{cfg.name} decode loop: " + "; ".join(failed))
+    del cache, kept
+    whisper_times(torch, dev, model, params, frames, toks, graph, static,
+                  pos)
+    return counts
+
+
+def whisper_times(torch, dev, model, params, frames, toks, graph, static,
+                  pos):
+    """encode, the 4-token prefill (its encoder and cross K/V included) and
+    the graphed decode step (median and p90 at the loop's last position)
+    from CUDA events, beside the step's floor: the decoder's weights but
+    its cross wk/wv, and the lm_head, read once, and the whole cross
+    cache. A traced replay (busy share, kernels a step), then the step by
+    part: one layer's part timed alone on the model's own weights and the
+    static cache, times the layers that run it."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import blocks
+    from repro_torch.models.common import layer_norm
+    cfg = model.cfg
+    P, L = WHISPER_PROMPT, cfg.num_layers
+    enc_ms = device_ms(torch, lambda: model.encode(params, frames), reps=10)
+    pre_ms = device_ms(torch, lambda: model.prefill(
+        params, toks[:, :P], frames, max_len=WHISPER_MAX_LEN), reps=10)
+    steps = device_times(torch, graph, reps=50)
+    med = statistics.median(steps)
+    p90 = statistics.quantiles(steps, n=10)[-1]
+    weights = (tree_bytes(params["dec_layers"]) + tree_bytes(
+        params["lm_head"]) + tree_bytes(params["dec_final_norm"]) - sum(
+        tree_bytes(lp["cross_attn"][k]) for lp in params["dec_layers"]
+        for k in ("wk", "wv")))
+    cross = tree_bytes(static["cross_k"]) + tree_bytes(static["cross_v"])
+    floor = 1e3 * (weights + cross) / HBM_BYTES_PER_S
+    context = int(pos[0])
+    say(f"  encode {enc_ms:.3f} ms; prefill of {P} tokens {pre_ms:.3f} ms "
+        f"(encoder and cross K/V included); graphed decode step at context "
+        f"{context}: median {med:.3f} ms, p90 {p90:.3f} ms of {len(steps)}; "
+        f"floor {floor:.3f} ms ({weights / 1e9:.3f} GB of weights and "
+        f"{cross / 1e9:.3f} GB of cross cache at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {med / floor:.2f}x)")
+    tr = trace_form(torch, f"graph decode step (context {context}, batch "
+                    f"{WHISPER_BATCH})", graph)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    lp = params["dec_layers"][0]
+    h = randn(torch, gen, (WHISPER_BATCH, 1, cfg.d_model),
+              cfg.activation_dtype)
+    slots = attn.decode_slots(cfg, WHISPER_MAX_LEN, pos)
+    self_c = attn.KVCache(static["self"].k[0], static["self"].v[0])
+    ck, cv = static["cross_k"][0], static["cross_v"][0]
+    ln = lp["ffn_norm"]
+    parts = [
+        ("self-attention (projections, cache write, decode kernel)", L,
+         lambda: attn.attention_decode(lp["self_attn"], model.self_cfg, h,
+                                       self_c, slots, None)),
+        ("cross-attention (plain gqa_attention, fp32)", L,
+         lambda: attn.cross_attention(lp["cross_attn"], cfg, h, ck, cv)),
+        ("  its fp32 casts of the encoder K/V", L,
+         lambda: (ck.float(), cv.float())),
+        ("FFN", L, lambda: blocks.ffn_forward(lp["ffn"], cfg, h)),
+        ("LayerNorm", 3 * L, lambda: layer_norm(h, ln["w"], ln["b"])),
+        ("final norm and lm_head", 1, lambda: model._unembed(params, h))]
+    say(f"  decode step by part (batch {WHISPER_BATCH}, one layer's part "
+        "timed alone, x layers):")
+    total = 0.0
+    for name, n, fn in parts:
+        ms = device_ms(torch, fn)
+        total += 0.0 if name.startswith(" ") else n * ms
+        say(f"    {name}: {ms:.4f} ms x {n} = {n * ms:.3f} ms")
+    say(f"    sum of the parts {total:.3f} ms against the graphed step's "
+        f"{med:.3f} ms (busy {tr['busy_ms']:.3f} ms, "
+        f"{100 * tr['busy_share']:.1f}%, {tr['kernels']} kernels a step)")
+    whisper_kernel_options(torch, gen, model, params, h, ck, cv, enc_ms)
+
+
+def whisper_kernel_options(torch, gen, model, params, h, ck, cv, enc_ms):
+    """What the two attentions that the JAX package computes without a
+    kernel would take through the port's kernels (neither is on the path;
+    the launches here come after the path's counts were read), each beside
+    its plain version on the same inputs: one layer's cross-attention
+    against the 1500 encoder frames through the decode kernel, every slot
+    valid, and one encoder layer's bidirectional attention through the
+    non-causal flash kernel at S = 1500."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn
+    cfg = model.cfg
+    B, T, L = WHISPER_BATCH, cfg.encoder_seq, cfg.num_layers
+    q = (h @ params["dec_layers"][0]["cross_attn"]["wq"]).reshape(
+        B, 1, cfg.num_heads, cfg.head_dim)
+    valid = torch.ones((B, T), dtype=torch.bool, device=h.device)
+    x = randn(torch, gen, (B, T, cfg.d_model), cfg.activation_dtype)
+    qe, ke, ve = attn._project_qkv(params["enc_layers"][0]["attn"],
+                                   model.self_cfg, x, cfg.num_kv_heads)
+    say("  the attentions JAX computes without a kernel, through the port's "
+        "kernels (one layer each, timed alone; not on the path):")
+    for name, n, plain, kernel in (
+            (f"cross-attention, q (B{B}, 1) over {T} frames: decode kernel",
+             L, lambda: attn.gqa_attention(q, ck, cv, None),
+             lambda: dec.decode_attention(q, ck, cv, valid)),
+            (f"encoder attention (B{B}, S{T}): non-causal flash kernel",
+             cfg.encoder_layers, lambda: attn.gqa_attention(qe, ke, ve, None),
+             lambda: fa.flash_attention(qe, ke, ve, causal=False))):
+        err = rel_l2(torch, kernel(), plain())
+        p_ms = device_ms(torch, plain, reps=10)
+        k_ms = device_ms(torch, kernel, reps=10)
+        say(f"    {name}: plain {p_ms:.4f} ms x {n} = {n * p_ms:.3f} ms, "
+            f"kernel {k_ms:.4f} ms x {n} = {n * k_ms:.3f} ms; kernel vs "
+            f"plain rel-L2 {err:.3e}"
+            f"{'' if err <= BF16_REL_L2 else ' (disagrees: not usable)'}")
+    say(f"    (encode took {enc_ms:.3f} ms in all)")
 
 
 # ---------------------------------------------------------------------------
@@ -1379,6 +1747,11 @@ def main() -> None:
     say("== phase 5: the Azure 2024 trace, llama3-3b under agft, agft-2d, "
         "greenllm-rule and static")
     counts[AZURE_RUN] = serve_azure(torch, dev)
+    torch.cuda.empty_cache()
+
+    say("== phase 6: whisper-medium (encoder-decoder) through its model "
+        "contract")
+    counts[WHISPER] = serve_whisper(torch, dev)
     torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

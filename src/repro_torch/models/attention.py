@@ -1,11 +1,11 @@
 """Attention of the port: GQA prefill and decode, the KV cache and its
-sliding-window ring buffer, the chunked (streaming-softmax) reference, and
-MLA (DeepSeek-V2's multi-head latent attention over a compressed cache).
-Plain paths are PyTorch; with ``cfg.use_pallas`` the hand-written Hopper
-kernels of ``repro_torch.kernels`` run GQA's prefill and decode instead (on
-a CPU tensor their plain versions run). MLA attends through einsums, as the
-JAX package does, with no kernel. Cross-attention (whisper) is not ported
-yet.
+sliding-window ring buffer, the chunked (streaming-softmax) reference, MLA
+(DeepSeek-V2's multi-head latent attention over a compressed cache) and
+whisper's cross-attention to precomputed encoder K/V. Plain paths are
+PyTorch; with ``cfg.use_pallas`` the hand-written Hopper kernels of
+``repro_torch.kernels`` run GQA's causal prefill and decode instead (on a
+CPU tensor their plain versions run). MLA and cross-attention attend
+through the plain einsums, as the JAX package does, with no kernel.
 
 The decode caches are updated in place: ``attention_decode`` and
 ``mla_decode`` write the new token's entries into the cache tensors they
@@ -312,6 +312,38 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: KVCache,
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
     y = out @ p["wo"].to(out.dtype)
     return y, KVCache(k=k_new, v=v_new)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper decoder -> encoder states)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig):
+    return init_attention(gen, cfg, num_kv=cfg.num_kv_heads)
+
+
+def cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,d); enc_k/enc_v: (B,T,Hkv,D) precomputed from the encoder
+    (``encoder_kv``). Only q is projected, with no qk-norm; every query
+    attends to every frame through the plain ``gqa_attention``, as in the
+    JAX package."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    out = gqa_attention(q, enc_k, enc_v, None)
+    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    return out @ p["wo"].to(out.dtype)
+
+
+def encoder_kv(p, cfg: ModelConfig, enc_out: torch.Tensor):
+    """The cross-attention K and V of the encoder's output (B,T,d), each
+    (B,T,Hkv,D)."""
+    B, T, _ = enc_out.shape
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(
+        B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(
+        B, T, cfg.num_kv_heads, cfg.head_dim)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

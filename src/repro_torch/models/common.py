@@ -1,4 +1,5 @@
-"""Shared model machinery of the port: the config dataclass, norms, rope and
+"""Shared model machinery of the port: the config dataclass, norms (RMSNorm,
+and whisper's LayerNorm), rope, whisper's sinusoidal positions and
 initializers.
 
 ``ModelConfig`` has the fields, defaults, ``replace()``, ``reduced()`` and
@@ -257,6 +258,18 @@ def add_rms_norm(x: torch.Tensor, r: torch.Tensor, weight: torch.Tensor,
     return add_rmsnorm_plain(x, r, weight, eps=eps)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with bias (whisper), as the JAX package computes it: the
+    mean and the population variance in fp32, then cast back to x's dtype.
+    It runs no kernel, in the port as in the JAX package."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
 def ffn_act(x_gate, x_up, kind: str):
     """Combine gate/up projections per the configured activation."""
     if kind == "swiglu":
@@ -317,3 +330,30 @@ def apply_rope(x: torch.Tensor, tables: RopeTables) -> torch.Tensor:
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal positions (whisper)
+# ---------------------------------------------------------------------------
+
+def inverse_timescales(dim: int, device) -> torch.Tensor:
+    """(dim // 2,) fp32: exp(-i log(10000) / (dim // 2 - 1)), every step in
+    fp32 as the JAX package takes it, on ``device`` from no host value."""
+    f32 = dict(dtype=torch.float32, device=device)
+    log_timescale = torch.full((), 10000.0, **f32).log() / (dim // 2 - 1)
+    return torch.exp(-log_timescale * torch.arange(dim // 2, **f32))
+
+
+def sinusoids(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoids of the positions ``t`` (any shape),
+    (..., dim) fp32: sin then cos of t times the inverse timescales. Built
+    on t's device with no host sync, so a decode step that calls it
+    captures as a CUDA graph."""
+    angles = t.float()[..., None] * inverse_timescales(dim, t.device)
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
+def sinusoidal_positions(length: int, dim: int,
+                         device="cuda") -> torch.Tensor:
+    """The sinusoids of positions 0..length-1, (length, dim) fp32."""
+    return sinusoids(torch.arange(length, device=device), dim)

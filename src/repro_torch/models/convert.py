@@ -3,8 +3,10 @@ params, so parity tests run both frameworks on the same weights.
 
 The JAX trees stack homogeneous layers on a leading axis: ``layers`` of
 ``DecoderOnlyLM`` and ``MambaLM`` (each leaf (L, ...), nested dicts such
-as Mamba's ``mixer`` included) and ``units`` of ``HybridLM`` (a dict of
-``l0``/``l1``/``l2`` layer dicts, each leaf (n_units, ...)). ``prefix``
+as Mamba's ``mixer`` included), ``units`` of ``HybridLM`` (a dict of
+``l0``/``l1``/``l2`` layer dicts, each leaf (n_units, ...)) and
+``enc_layers``/``dec_layers`` of ``EncDecLM`` (LayerNorms nest their
+``{"w", "b"}`` a level deeper). ``prefix``
 (dense) and ``tail`` (hybrid) are lists of unstacked layers. The port keeps
 a list of per-layer (or per-unit) dicts for a stacked key, and the lists as
 they are. Matrices stay (in, out) in both, and every leaf keeps its dtype
@@ -55,7 +57,8 @@ def _num_layers(tree) -> int:
     return int(np.shape(tree)[0])
 
 
-_STACKED = ("layers", "units")     # stacked on a leading axis
+# stacked on a leading axis
+_STACKED = ("layers", "units", "enc_layers", "dec_layers")
 
 
 def from_jax_params(tree: Any, device="cuda") -> Any:

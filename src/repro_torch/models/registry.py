@@ -1,7 +1,7 @@
 """Model factory: ModelConfig -> model object with the uniform contract.
-The port has the dense and MoE decoder-only (GQA or MLA attention), SSM
-(Mamba-2) and hybrid (RecurrentGemma) families; the encoder-decoder family
-of ``repro.models`` is not ported yet."""
+The port has every family of ``repro.models``: the dense and MoE
+decoder-only (GQA or MLA attention), SSM (Mamba-2), hybrid
+(RecurrentGemma) and encoder-decoder (Whisper) families."""
 from __future__ import annotations
 
 from repro_torch.models.common import ModelConfig
@@ -15,7 +15,7 @@ def build_model(cfg: ModelConfig):
         from repro_torch.models.hybrid import HybridLM
         return HybridLM(cfg)
     if cfg.arch_type in ("encdec", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type} family is not ported yet")
+        from repro_torch.models.encdec import EncDecLM
+        return EncDecLM(cfg)
     from repro_torch.models.transformer import DecoderOnlyLM
     return DecoderOnlyLM(cfg)

@@ -249,6 +249,11 @@ class TorchBackend:
     def __init__(self, cfg: ModelConfig, hardware: HardwareSpec = H100,
                  max_batch: int = 8, cache_len: int = 256, seed: int = 0,
                  device="cuda", params=None):
+        if cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{cfg.name}: TorchBackend serves decoder-only models, as "
+                "JaxBackend does; an encoder-decoder runs through its model "
+                "contract (prefill with the frames, then decode_step)")
         self.device = resolve_device(device)
         self.cfg = cfg.replace(use_pallas=True)
         self.dvfs = DVFSModel(hardware)

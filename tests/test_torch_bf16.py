@@ -1,8 +1,9 @@
 """The port's bf16 path, the dtype it serves in, against the JAX package's,
 on the CPU: one Mamba-2 block and one RG-LRU block, and the reduced
 ``MambaLM``, ``HybridLM``, dense ``DecoderOnlyLM`` (tinyllama-1.1b and
-llama3-3b) and MoE ``DecoderOnlyLM`` (deepseek-v2-lite-16b with MLA,
-llama4-scout-17b-a16e) on the JAX init's bf16 weights (converted by
+llama3-3b), MoE ``DecoderOnlyLM`` (deepseek-v2-lite-16b with MLA,
+llama4-scout-17b-a16e) and ``EncDecLM`` (whisper-medium) on the JAX init's
+bf16 weights (converted by
 ``repro_torch.models.convert``), with ``use_pallas`` off and on.
 
 Two bf16 paths differ wherever one rounding flips, and the flips grow
@@ -55,6 +56,7 @@ MOE_FLIPPED = 0.25
 SSM, HYBRID = "mamba2-1.3b", "recurrentgemma-9b"
 TINY, LLAMA = "tinyllama-1.1b", "llama3-3b"
 DEEPSEEK, SCOUT = "deepseek-v2-lite-16b", "llama4-scout-17b-a16e"
+WHISPER = "whisper-medium"
 # (arch, the JAX block's init and forward, the port's forward and state)
 BLOCKS = {
     SSM: (jblocks.init_ssd_block, jblocks.ssd_block_forward,
@@ -180,7 +182,8 @@ class _Routings:
     (HYBRID, 3, False), (HYBRID, 3, True), (HYBRID, 5, False),
     (HYBRID, 5, True), (TINY, 2, False), (TINY, 2, True), (LLAMA, 2, False),
     (LLAMA, 2, True), (DEEPSEEK, 2, False), (DEEPSEEK, 2, True),
-    (DEEPSEEK, 4, True), (SCOUT, 2, False), (SCOUT, 2, True)])
+    (DEEPSEEK, 4, True), (SCOUT, 2, False), (SCOUT, 2, True),
+    (WHISPER, 2, False), (WHISPER, 2, True)])
 def test_bf16_model_tracks_jax(arch, num_layers, use_pallas, monkeypatch):
     """The reduced model in bf16 on the JAX init's bf16 weights: forward,
     prefill and four decode steps against JAX's bf16 and fp32 runs on the
@@ -188,7 +191,8 @@ def test_bf16_model_tracks_jax(arch, num_layers, use_pallas, monkeypatch):
     the hybrid at 3 (no tail) and 5 (a tail of two), its prefill of 40
     tokens past the reduced window of 32; the dense models at 2; the MoE
     models at 2 (deepseek: its dense prefix layer and an MoE layer with
-    MLA) and deepseek at 4."""
+    MLA) and deepseek at 4; the encoder-decoder at 2 + 2, on bf16 frames
+    (fp32 for JAX's fp32 run: the same values)."""
     kw = dict(num_layers=num_layers, use_pallas=use_pallas)
     jm = jax_build_model(jax_get_config(arch).reduced().replace(**kw,
                                                                 **BF16))
@@ -202,6 +206,13 @@ def test_bf16_model_tracks_jax(arch, num_layers, use_pallas, monkeypatch):
     B, S = 2, 40
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S + 4))
     jt, tt = jnp.asarray(toks), torch.from_numpy(toks)
+    # an encoder-decoder's forward and prefill also take the frames
+    f16 = f32 = tf = ()
+    if cfg.is_encoder_decoder:
+        frames = jnp.asarray(np.random.default_rng(2).standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)), jnp.bfloat16)
+        f16, f32 = (frames,), (frames.astype(jnp.float32),)
+        tf = (to_tensor(np.asarray(frames), "cpu"),)
     routes = _Routings(monkeypatch) if cfg.num_experts else None
 
     def run(fn, *args):
@@ -218,15 +229,15 @@ def test_bf16_model_tracks_jax(arch, num_layers, use_pallas, monkeypatch):
                                                                vs_jax)
         return keep.mean() if routes else 1.0
 
-    kept = tracks(run(tm.forward, tparams, tt[:, :S])[0],
-                  run(jm.forward, params, jt[:, :S])[0],
-                  run(jm32.forward, params, jt[:, :S])[0], 0)
+    kept = tracks(run(tm.forward, tparams, tt[:, :S], *tf)[0],
+                  run(jm.forward, params, jt[:, :S], *f16)[0],
+                  run(jm32.forward, params, jt[:, :S], *f32)[0], 0)
     assert kept >= 1.0 - MOE_FLIPPED
     if routes:
         routes.reset()
-    tl, tc = run(tm.prefill, tparams, tt[:, :S])
-    jl, jc = run(jm.prefill, params, jt[:, :S])
-    jl32, jc32 = run(jm32.prefill, params, jt[:, :S])
+    tl, tc = run(tm.prefill, tparams, tt[:, :S], *tf)
+    jl, jc = run(jm.prefill, params, jt[:, :S], *f16)
+    jl32, jc32 = run(jm32.prefill, params, jt[:, :S], *f32)
     tracks(tl, jl, jl32, 0)
     assert _dtypes(tc) == _dtypes(jc)
     for i in range(4):

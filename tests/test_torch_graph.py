@@ -153,6 +153,14 @@ def test_add_launch_counts_is_captured_counts_times_replays():
     assert all(n == 0 for n in launch_counts().values())
 
 
+def test_backend_refuses_an_encoder_decoder():
+    """whisper-medium is driven through its model contract
+    (``tests/test_torch_encdec.py``): its forward and prefill take frames,
+    which no backend step has."""
+    with pytest.raises(ValueError, match="model contract"):
+        TorchBackend(get_config("whisper-medium").reduced(), device="cpu")
+
+
 def test_step_graph_runs_eagerly_on_the_cpu():
     calls = []
     graph = StepGraph(lambda: calls.append(1) or len(calls),

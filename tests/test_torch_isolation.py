@@ -32,12 +32,15 @@ names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for n in names:
     importlib.import_module(n)
-# the MoE and MLA path, imported above without JAX or repro
-from repro_torch.models import attention, blocks
+# the MoE, MLA and encoder-decoder path, imported above without JAX or
+# repro
+from repro_torch.models import attention, blocks, common, encdec
 for fn in (blocks.init_moe, blocks.moe_forward_dense,
            blocks.moe_forward_capacity, attention.init_mla,
            attention.mla_forward, attention.mla_decode,
-           attention.flash_attention_chunked):
+           attention.flash_attention_chunked, attention.cross_attention,
+           attention.encoder_kv, common.layer_norm,
+           common.sinusoidal_positions, encdec.EncDecLM):
     assert callable(fn)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
@@ -47,14 +50,15 @@ print(" ".join(names))
 
 # the modules of the SSM and hybrid path, the CUDA graphs and the baseline
 # policies, those that hold the MoE blocks, MLA, the chunked reference and
-# the MoE/MLA decoder, and the Azure trace, phased tuner, fleet layer and
-# serve CLI, which the walk must reach
+# the MoE/MLA decoder, the encoder-decoder, and the Azure trace, phased
+# tuner, fleet layer and serve CLI, which the walk must reach
 PATH_MODULES = {"repro_torch.kernels.ssd", "repro_torch.kernels.rglru",
                 "repro_torch.models.ssm", "repro_torch.models.hybrid",
                 "repro_torch.serving.graphs", "repro_torch.policies.fixed",
                 "repro_torch.policies.rules", "repro_torch.models.blocks",
                 "repro_torch.models.attention",
                 "repro_torch.models.transformer",
+                "repro_torch.models.encdec",
                 "repro_torch.models.convert",
                 "repro_torch.workloads.azure_trace",
                 "repro_torch.configs.shapes", "repro_torch.energy.phases",

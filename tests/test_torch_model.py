@@ -210,9 +210,11 @@ def test_sliding_window_cache_matches_jax():
                                    rtol=1e-3, atol=1e-3)
 
 
-def test_unported_families_raise():
-    with pytest.raises(NotImplementedError):
-        build_model(get_config("whisper-medium").reduced())
+def test_whisper_builds_the_encdec_model():
+    """Every family is ported: whisper-medium builds the port's
+    encoder-decoder (held to JAX in ``tests/test_torch_encdec.py``)."""
+    from repro_torch.models.encdec import EncDecLM
+    assert isinstance(build_model(get_config("whisper-medium")), EncDecLM)
 
 
 def test_init_is_seeded_and_shaped():
