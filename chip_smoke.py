@@ -89,17 +89,42 @@ failure, or when there is no card or no checkout beside it. Phases:
    the cross cache unchanged. encode, the prefill and the graphed step
    timed (median, p90) beside the step's floor, a replay traced, and the
    step timed by part.
+7. Training. fp32 loss and gradients on the card against fp64 (TF32
+   off; the leaves and steps the models hold in fp32 in any dtype stay
+   so) at full width and a cut depth: llama3-3b, mamba2-1.3b and
+   deepseek-v2-lite-16b at 2 layers, recurrentgemma-9b at 3 (one unit),
+   whisper-medium at 2 + 2, batch 2 x 64 (whisper with its 1500 frames):
+   the loss within 1e-6 relative and every gradient leaf within a
+   relative L2 of 1e-4, the worst leaf printed (deepseek prints its
+   fp32/fp64 routing agreement and, after a flip, holds the leaves no flip
+   reaches). Then ``repro_torch.launch.train.main`` trains full-width
+   llama3-3b (all 28 layers, bf16) for 30 steps of 8 x 128 tokens at
+   --lr 3e-4 after 5 warm-up steps, and fails unless every loss and
+   gradient norm is finite and the last logged loss is below the first;
+   it prints the median step split into forward+backward and the AdamW
+   update (CUDA events), tokens/s and the peak memory beside the card's
+   name and power limit, then the forward+backward peak at 8 x 512 with
+   remat on and off (on must be lower). The checkpoint the run saved
+   must load into a zeroed template bit for bit. The loaded weights are
+   then served through the kernels, the launch counts set to 0 before: a
+   64-token forward and prefill through flash attention and RMSNorm, and
+   4 decode steps of 8 rows through decode attention, each launch held to
+   its plain version on its inputs at BF16_REL_L2, the forward's logits
+   to fp32 as phase 3 holds them; last, a loss through the kernels on
+   params that require grad must raise the wrappers' ``RuntimeError``.
 
 The last lines are a JSON object with each kernel's numbers (a row per
 kernel and timed shape; its launches are those of the serve runs whose
 path runs that shape, also given per model, phase 5's under
-``"llama3-3b azure"``, phase 6's under ``"whisper-medium"``) and the
+``"llama3-3b azure"``, phase 6's under ``"whisper-medium"``, phase 7's
+under ``"llama3-3b trained"``) and the
 result line ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -184,6 +209,24 @@ WHISPER = "whisper-medium"
 WHISPER_PARAMS = 811_112_448
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_MAX_LEN = 8, 4, 448
 WHISPER_STEPS = 64
+# phase 7: fp32 gradients against fp64 at full width and a cut depth
+# (recurrentgemma-9b: one (rec, rec, attn) unit; whisper-medium: 2 + 2)
+GRAD_LAYERS = {"llama3-3b": 2, "mamba2-1.3b": 2, "deepseek-v2-lite-16b": 2,
+               "recurrentgemma-9b": 3, "whisper-medium": 2}
+GRAD_BATCH = (2, 64)
+# leaves held in fp32 in every config (Mamba-2's decay and skip, the RG-LRU's
+# lambda), in the JAX package too: the fp64 run keeps them so
+FP32_LEAVES = ("A_log", "D", "dt_bias", "lambda_param")
+LOSS_REL_FP64 = 1e-6
+GRAD_REL_L2_FP64 = 1e-4
+# phase 7: full-width llama3-3b (all 28 layers, bf16) trained by the CLI,
+# then its remat peaks, and its trained weights served through the kernels
+TRAIN_ARCH = "llama3-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 30
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
+REMAT_BATCH, REMAT_SEQ = 8, 512
+SERVE_PROMPT, SERVE_MAX_LEN, SERVE_BATCH, SERVE_STEPS = 64, 2048, 8, 4
+TRAINED_RUN = "llama3-3b trained"  # phase 7's key in the kernels line
 WHISPER_CHECKED = 3        # replays held to the eager step bit for bit
 WHISPER_FP32_LAYERS = 4    # the fp32 checks: 4 encoder + 4 decoder layers
 # its decoder's self-attention: 16 query heads over 16 kv heads of 64
@@ -194,12 +237,14 @@ G1_DECODE = (8, WHISPER_MAX_LEN, 16, 16, 64)
 G1_VALID = (WHISPER_PROMPT + 1, WHISPER_PROMPT + WHISPER_STEPS)
 # each timed row of the kernels line: its kernel, and the serve runs whose
 # path launches that kernel at the row's shape (the row counts theirs)
-ROWS = {"rmsnorm": ("rmsnorm", MODELS + (AZURE_RUN,)),
-        "add_rmsnorm": ("rmsnorm_fused", MODELS + (AZURE_RUN,)),
-        "flash_attention": ("flash_attention", ("llama3-3b", AZURE_RUN)),
+ROWS = {"rmsnorm": ("rmsnorm", MODELS + (AZURE_RUN, TRAINED_RUN)),
+        "add_rmsnorm": ("rmsnorm_fused", MODELS + (AZURE_RUN, TRAINED_RUN)),
+        "flash_attention": ("flash_attention", ("llama3-3b", AZURE_RUN,
+                                                TRAINED_RUN)),
         "flash_attention_g5": ("flash_attention",
                                ("llama4-scout-17b-a16e",)),
-        "decode_attention": ("decode_attention", ("llama3-3b", AZURE_RUN)),
+        "decode_attention": ("decode_attention", ("llama3-3b", AZURE_RUN,
+                                                  TRAINED_RUN)),
         "decode_attention_g5": ("decode_attention",
                                 ("llama4-scout-17b-a16e",)),
         "decode_attention_d256_g16": ("decode_attention",
@@ -1693,6 +1738,413 @@ def whisper_kernel_options(torch, gen, model, params, h, ck, cv, enc_ms):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+def leaf_paths(tree, prefix=""):
+    """The dotted path of each tensor of a params tree, in the order of
+    ``tree_tensors``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_paths(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1]
+
+
+def grad_config(name):
+    """The model at full width, cut to its GRAD_LAYERS."""
+    n = GRAD_LAYERS[name]
+    cfg = model_config(name).replace(num_layers=n)
+    return cfg.replace(encoder_layers=n) if cfg.is_encoder_decoder else cfg
+
+
+def grads_vs_fp64(torch, dev, cfg):
+    """fp32 loss and gradients on the card against fp64, TF32 off: fp32
+    weights from a seeded generator and the same widened to fp64,
+    GRAD_BATCH tokens (whisper's frames too, fp32 and fp64); FP32_LEAVES
+    stay fp32, and the steps that the models compute in fp32 in any dtype
+    (the norms' statistics, attention's scores) stay so. The loss must
+    lie within LOSS_REL_FP64 and each gradient leaf within a relative L2 of
+    GRAD_REL_L2_FP64 of fp64's; the worst leaf is printed. An MoE model
+    first compares its routing in the two precisions (``routings``,
+    ``routing_flips``, as phase 3): after a flip, the tokens it reaches
+    leave the loss (its mask), and only the leaves no flip reaches are
+    held: the final norm, the lm_head and the experts (not the router) of
+    the MoE layers from the last flip on, since the load-balance loss
+    carries a flip to the router and to every leaf before it."""
+    import numpy as np
+    from repro_torch.models import build_model, tree_map, tree_tensors
+    t0 = time.perf_counter()
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    cfg64 = cfg.replace(dtype="float64", param_dtype="float64")
+    m32, m64 = build_model(cfg32), build_model(cfg64)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = m32.init(gen)
+    B, S = GRAD_BATCH
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S + 1))).to(dev)
+    args32 = [toks[:, :-1], toks[:, 1:]]
+    args64 = list(args32)
+    if cfg.is_encoder_decoder:
+        frames = randn(torch, gen, (B, cfg.encoder_seq, cfg.d_model),
+                       torch.float32)
+        args32.append(frames)
+        args64.append(frames.double())
+    names = list(leaf_paths(params))
+    n_params = sum(t.numel() for t in tree_tensors(params))
+    kw, held = {}, set(names)
+    if cfg.num_experts:
+        with torch.no_grad():
+            _, r32 = routings(lambda: m32.forward(params, args32[0]))
+            paths = iter(names)
+            p64 = tree_map(lambda t: t if next(paths).split(".")[-1] in
+                           FP32_LEAVES else t.double(), params)
+            _, r64 = routings(lambda: m64.forward(p64, args64[0]))
+            del p64
+        agree, keep = routing_flips(torch, r32, r64)
+        flipped = [i for i, (a, b) in enumerate(zip(r32, r64)) if not
+                   torch.equal(a.sort(-1).values, b.sort(-1).values)]
+        say(f"  {cfg.name}: routing, fp32 vs fp64: agree on {agree:.6f} of "
+            f"the {sum(r.numel() for r in r32)} (token, expert) choices; "
+            f"{int(keep.sum())} of {keep.numel()} tokens reached by no flip")
+        if flipped:
+            if not bool(keep.any()):
+                fail(f"{cfg.name}: a routing flip reaches every token")
+            kw["mask"] = keep.float()
+            held = {n for n in names if n in ("final_norm", "lm_head") or (
+                n.startswith("layers.") and ".moe." in n
+                and not n.endswith(".router")
+                and int(n.split(".")[1]) >= flipped[-1])}
+    for t in tree_tensors(params):
+        t.requires_grad_(True)
+    loss = m32.loss(params, *args32, **kw)
+    loss.backward()
+    loss32 = loss.item()        # the graph's leaves go with the tensor
+    g32 = [t.grad for t in tree_tensors(params)]
+    paths = iter(names)
+    params64 = tree_map(lambda t: (t.detach() if next(paths).split(".")[-1]
+                                   in FP32_LEAVES else t.detach().double()
+                                   ).requires_grad_(True), params)
+    del loss, params
+    loss = m64.loss(params64, *args64, **kw)
+    loss.backward()
+    loss64 = loss.item()
+    del loss
+    errs = {}
+    for n, g, p in zip(names, g32, tree_tensors(params64)):
+        if n in held:
+            errs[n] = float(torch.linalg.vector_norm(g.double() - p.grad)
+                            / torch.linalg.vector_norm(p.grad))
+    worst = max(errs, key=errs.get)
+    e_loss = abs(loss32 - loss64) / abs(loss64)
+    say(f"  {cfg.name} at {cfg.num_layers} layers"
+        f"{' + ' + str(cfg.encoder_layers) if cfg.is_encoder_decoder else ''}"
+        f": {n_params / 1e9:.3f} B params, batch {B} x {S}; loss fp32 "
+        f"{loss32:.7f}, fp64 {loss64:.9f}, rel err {e_loss:.3e} (tol "
+        f"{LOSS_REL_FP64}); {len(errs)} of {len(names)} gradient leaves "
+        f"held, worst rel-L2 {errs[worst]:.3e} at {worst} (tol "
+        f"{GRAD_REL_L2_FP64}); {time.perf_counter() - t0:.1f} s")
+    del g32, params64
+    torch.cuda.empty_cache()
+    if not (e_loss <= LOSS_REL_FP64 and all(
+            e <= GRAD_REL_L2_FP64 for e in errs.values())):
+        fail(f"{cfg.name}: fp32 loss or gradients on the card disagree with "
+             "fp64")
+
+
+def train_full(torch, dev, ckpt):
+    """``repro_torch.launch.train.main`` on full-width, full-depth
+    TRAIN_ARCH in bf16: TRAIN_BATCH x TRAIN_SEQ tokens a step, TRAIN_STEPS
+    steps at --lr TRAIN_LR after TRAIN_WARMUP warm-up steps
+    (``AdamWConfig``), the trained params saved to ``ckpt``. Each step's
+    forward+backward and AdamW update are timed with CUDA events around
+    the train loop's own step and ``adamw_update`` (wrapped for this run).
+    Fails unless every step's loss and gradient norm are finite and the
+    last logged loss is below the first. Returns the trained params."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training import AdamWConfig, train_loop
+    starts, updates, metrics = [], [], []
+    real_make, real_update = train_loop.make_train_step, \
+        train_loop.adamw_update
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed_update(*args):
+        e0 = event()
+        out = real_update(*args)
+        updates.append((e0, event()))
+        return out
+
+    def timed_make(model, opt_cfg):
+        step = real_make(model, opt_cfg)
+
+        def timed_step(*args):
+            starts.append(event())
+            out = step(*args)
+            metrics.append(out[2])
+            return out
+
+        return timed_step
+
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+            "--seed", "0", "--checkpoint", ckpt, "--device", str(dev)]
+    say(f"  python -m repro_torch.launch.train {' '.join(argv)} "
+        f"(AdamWConfig(warmup_steps={TRAIN_WARMUP}))")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_loop.make_train_step = timed_make
+    train_loop.adamw_update = timed_update
+    try:
+        params, history = train_cli.main(
+            argv, opt_cfg=AdamWConfig(warmup_steps=TRAIN_WARMUP))
+    finally:
+        train_loop.make_train_step = real_make
+        train_loop.adamw_update = real_update
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fb = [s.elapsed_time(u0) for s, (u0, _) in zip(starts, updates)]
+    up = [u0.elapsed_time(u1) for u0, u1 in updates]
+    step_ms = [a + b for a, b in zip(fb[1:], up[1:])]   # the first warms up
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    finite = all(math.isfinite(x) for x in losses + gnorms)
+    med = statistics.median(step_ms)
+    say(f"  card: {card_line()}")
+    say(f"  {len(metrics)} steps, {wall:.1f} s wall with the init and the "
+        f"checkpoint; losses {losses[0]:.4f} -> {losses[-1]:.4f}, logged "
+        f"{[round(h['loss'], 4) for h in history]}; grad norms "
+        f"{gnorms[0]:.3f} -> {gnorms[-1]:.3f}; all finite {finite}")
+    say(f"  step (median of steps 2-{len(metrics)}, CUDA events): "
+        f"forward+backward {statistics.median(fb[1:]):.3f} ms, AdamW update "
+        f"{statistics.median(up[1:]):.3f} ms, step {med:.3f} ms (p90 "
+        f"{sorted(step_ms)[int(0.9 * (len(step_ms) - 1))]:.3f}); first step "
+        f"{fb[0]:.3f} + {up[0]:.3f} ms; "
+        f"{TRAIN_BATCH * TRAIN_SEQ / (med / 1e3):.0f} tokens/s; peak memory "
+        f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
+    if len(metrics) != TRAIN_STEPS or not finite or not \
+            history[-1]["loss"] < history[0]["loss"]:
+        fail(f"{TRAIN_ARCH} training: a loss or gradient norm not finite, "
+             "or the last logged loss not below the first")
+    return params
+
+
+def remat_peaks(torch, dev, cfg, params):
+    """The forward+backward peak memory of a loss at REMAT_BATCH x REMAT_SEQ
+    with remat on and off (``torch.cuda.max_memory_allocated``, from the
+    memory held before it: the params), each pass timed once with CUDA
+    events. Fails unless remat's peak is the lower."""
+    import numpy as np
+    from repro_torch.models import build_model, tree_tensors
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (REMAT_BATCH, REMAT_SEQ + 1))).to(dev)
+    peaks = {}
+    for remat in (True, False):
+        model = build_model(cfg.replace(remat=remat))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        model.loss(params, toks[:, :-1], toks[:, 1:]).backward()
+        end.record()
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        say(f"  remat {'on ' if remat else 'off'}: forward+backward at "
+            f"{REMAT_BATCH} x {REMAT_SEQ}: peak {peaks[remat] / 1e9:.3f} GB "
+            f"({(peaks[remat] - base) / 1e9:.3f} GB over the "
+            f"{base / 1e9:.3f} GB held before), one pass "
+            f"{start.elapsed_time(end):.3f} ms")
+        for t in tree_tensors(params):
+            t.grad = None
+    if not peaks[True] < peaks[False]:
+        fail("remat did not lower the forward+backward peak")
+
+
+def serve_trained(torch, dev, cfg, params):
+    """The trained weights (requiring no grad) in a ``use_pallas`` model:
+    the SERVE_PROMPT-token forward and prefill (batch 1, a 2048-slot
+    cache) through flash attention and RMSNorm, then the cache copied to
+    8 rows and SERVE_STEPS decode steps of 8 tokens through decode
+    attention, the launch counts set to 0 before. Each launch's output is
+    held to its plain version on the same inputs at BF16_REL_L2; the
+    forward's logits to an fp32 forward of the same weights as phase 3
+    holds them (no further than BF16_VS_PLAIN x the plain bf16 path's);
+    each decode step's logits against the plain path's, printed. Then a
+    ``loss`` with the kernels on params that require grad must raise the
+    wrappers' ``RuntimeError``. Returns the launch counts."""
+    import numpy as np
+    from repro_torch.kernels import (launch_counts, ops, ref,
+                                     reset_launch_counts)
+    from repro_torch.models import build_model, tree_map, tree_tensors
+    ker, plain = build_model(cfg.replace(use_pallas=True)), build_model(cfg)
+    S, T, B, L = SERVE_PROMPT, SERVE_MAX_LEN, SERVE_BATCH, cfg.num_layers
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, S))).to(dev)
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (SERVE_STEPS, B, 1))).to(dev)
+    errs = {}
+    real = {n: getattr(ops, n) for n in ("rmsnorm", "add_rmsnorm",
+                                         "flash_attention",
+                                         "decode_attention")}
+
+    def held(name):
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            want = getattr(ref, name)(*args, **kw)
+            pairs = zip(out, want) if isinstance(out, tuple) else \
+                [(out, want)]
+            errs.setdefault(name, []).extend(rel_l2(torch, o, w)
+                                             for o, w in pairs)
+            return out
+        return call
+
+    def run(model):
+        """The forward's logits, and the decode steps' logits."""
+        logits = model.forward(params, prompt)[0]
+        _, cache = model.prefill(params, prompt, max_len=T)
+        cache = tree_map(lambda t: t.repeat_interleave(B, dim=1).contiguous(),
+                         cache)
+        pos = torch.full((B,), S, dtype=torch.long, device=dev)
+        dec = []
+        for i in range(SERVE_STEPS):
+            lg, cache = model.decode_step(params, steps[i], cache, pos + i)
+            dec.append(lg)
+        return logits, dec
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launch_counts()                 # count the main path alone
+        for n in real:
+            setattr(ops, n, held(n))
+        try:
+            lk, dk = run(ker)
+        finally:
+            for n, fn in real.items():
+                setattr(ops, n, fn)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        lp, dp = run(plain)
+        l32 = build_model(cfg.replace(dtype="float32", param_dtype="float32")
+                          ).forward(params, prompt)[0]
+    e_k, e_p = rel_l2(torch, lk, l32), rel_l2(torch, lp, l32)
+    e_dec = [rel_l2(torch, a, b) for a, b in zip(dk, dp)]
+    finite = all(bool(torch.isfinite(t).all()) for t in [lk] + dk)
+    runs = 2 + SERVE_STEPS
+    want = {"rmsnorm": (2 * L + 1) * runs, "rmsnorm_fused": 2 * L * runs,
+            "flash_attention": 2 * L, "decode_attention": SERVE_STEPS * L}
+    calls = {"rmsnorm": counts["rmsnorm"] - counts["rmsnorm_fused"],
+             "add_rmsnorm": 2 * counts["rmsnorm_fused"],
+             "flash_attention": counts["flash_attention"],
+             "decode_attention": counts["decode_attention"]}
+    say(f"  trained weights through the kernels: launches {counts}; each "
+        "launch against its plain version on its inputs, worst rel-L2 "
+        + ", ".join(f"{n} {max(e):.3e} ({len(e)})" for n, e in errs.items())
+        + f" (tol {BF16_REL_L2})")
+    say(f"  forward logits (1 x {S}) vs fp32: kernels rel-L2 {e_k:.3e}, "
+        f"plain {e_p:.3e} (kernels <= {BF16_VS_PLAIN} x plain); kernels vs "
+        f"plain {rel_l2(torch, lk, lp):.3e}; {SERVE_STEPS} decode steps of "
+        f"{B} rows, kernels vs plain {[f'{e:.3e}' for e in e_dec]}; finite "
+        f"{finite}")
+    checks = {f"{n} launches == {want.get(n, 0)}": counts[n] == want.get(n, 0)
+              for n in counts}
+    checks.update({f"{n}: each launch held to its plain version":
+                   len(errs.get(n, ())) == k
+                   and all(e <= BF16_REL_L2 for e in errs[n])
+                   for n, k in calls.items()})
+    checks["forward logits no further from fp32 than the plain path's"] = \
+        e_k <= BF16_VS_PLAIN * e_p
+    checks["logits finite"] = finite
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"{cfg.name} trained weights: " + "; ".join(failed))
+    for t in tree_tensors(params):
+        t.requires_grad_(True)
+    try:
+        ker.loss(params, prompt[:, :-1], prompt[:, 1:])
+    except RuntimeError as e:
+        if "has no gradient" not in str(e):
+            raise
+        say(f"  loss through the kernels on params that require grad "
+            f"refused: {e}")
+    else:
+        fail("a loss through the kernels on params that require grad did "
+             "not raise")
+    return counts
+
+
+def trace_train_step(torch, dev, cfg, params):
+    """Where a train step's time goes: ``trace_form`` over the train loop's
+    own step (``make_train_step``) on ``params``, from fresh AdamW moments,
+    on one synthetic batch of TRAIN_BATCH x TRAIN_SEQ: its wall time, the
+    device-busy share, the kernels a step and the top device kernels and
+    host ops."""
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, init_adamw, make_train_step
+    from repro_torch.training.train_loop import to_device
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    state = [init_adamw(params, opt_cfg)]
+    step = make_train_step(build_model(cfg), opt_cfg)
+    batch = to_device(next(synthetic_token_batches(
+        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=1)), dev)
+
+    def one():
+        _, state[0], _ = step(params, state[0], batch)
+
+    trace_form(torch, f"train step ({TRAIN_BATCH} x {TRAIN_SEQ}, eager)",
+               one, steps=2, timed=3)
+    del state
+    torch.cuda.empty_cache()
+
+
+def train_phase(torch, dev):
+    """Phase 7: fp32 gradients against fp64 for the five families, the
+    full-depth training run, its checkpoint, a traced train step, remat's
+    peaks and the trained weights served through the kernels. Returns that
+    serve's counts."""
+    from repro_torch.models import tree_map, tree_tensors
+    from repro_torch.training import load_checkpoint
+    t0 = time.perf_counter()
+    for name in GRAD_LAYERS:
+        grads_vs_fp64(torch, dev, grad_config(name))
+    ckpt = os.path.join(HERE, "build", "train", f"{TRAIN_ARCH}.npz")
+    params = train_full(torch, dev, ckpt)
+    cfg = model_config(TRAIN_ARCH)
+    t1 = time.perf_counter()
+    template = tree_map(torch.zeros_like, params)
+    loaded, _ = load_checkpoint(ckpt, template)
+    del template
+    same = [torch.equal(a, b) for a, b in zip(tree_tensors(params),
+                                              tree_tensors(loaded))]
+    size = os.path.getsize(ckpt)
+    os.remove(ckpt)
+    say(f"  checkpoint: {size / 1e9:.3f} GB; loaded into a zeroed template "
+        f"in {time.perf_counter() - t1:.1f} s, {sum(same)} of {len(same)} "
+        "leaves equal (torch.equal)")
+    if not all(same):
+        fail("the checkpoint did not restore the trained params bit for bit")
+    trace_train_step(torch, dev, cfg, params)
+    remat_peaks(torch, dev, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    counts = serve_trained(torch, dev, cfg, loaded)
+    del loaded
+    say(f"  phase 7: {time.perf_counter() - t0:.1f} s wall")
+    return counts
+
+
 def model_config(name):
     """The model's config at full width, at the depth one card holds."""
     from repro_torch.configs import get_config
@@ -1752,6 +2204,11 @@ def main() -> None:
     say("== phase 6: whisper-medium (encoder-decoder) through its model "
         "contract")
     counts[WHISPER] = serve_whisper(torch, dev)
+    torch.cuda.empty_cache()
+
+    say("== phase 7: training: fp32 gradients vs fp64, full-depth "
+        f"{TRAIN_ARCH} trained, its checkpoint and its weights served")
+    counts[TRAINED_RUN] = train_phase(torch, dev)
     torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

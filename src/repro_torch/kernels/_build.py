@@ -42,6 +42,19 @@ def use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+def refuse_grad(name: str, pallas: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd records and an input of the wrapper ``name``
+    requires grad: its kernel has no backward, as ``pallas``, the Pallas
+    kernel it replaces, has none (JAX refuses to differentiate it), so its
+    output would silently carry no gradient. Every wrapper calls it before
+    it picks the kernel or the plain version, so the CPU refuses too."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no gradient: {pallas}, the Pallas kernel it "
+            "replaces, has none; train with use_pallas=False, or call it "
+            "under torch.no_grad()")
+
+
 def build_dir() -> Path:
     """Where the libraries go: ``REPRO_TORCH_BUILD_DIR`` when it is set,
     else ``build/kernels`` at the root of the checkout that holds this

@@ -111,6 +111,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q: (B,1,H,D); caches (B,T,Hkv,D); valid (B,T) bool -> (B,1,H,D).
     On a CUDA tensor launches the kernel, on a CPU tensor runs the plain
     version."""
+    _build.refuse_grad("decode_attention", "decode_attention_grouped", q,
+                       k_cache, v_cache)
     if not _build.use_kernel(q):
         return decode_attention_plain(q, k_cache, v_cache, valid)
     _check(q, k_cache, v_cache, valid)

@@ -57,6 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B,S,H,D); k,v: (B,S,Hkv,D) -> (B,S,H,D). On a CUDA tensor
     launches the kernel, on a CPU tensor runs the plain version."""
+    _build.refuse_grad("flash_attention", "flash_attention_bhsd", q, k, v)
     if not _build.use_kernel(q):
         return flash_attention_plain(q, k, v, causal=causal)
     _check(q, k, v)

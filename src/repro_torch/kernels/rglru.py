@@ -33,6 +33,7 @@ __all__ = ["rglru_scan", "rglru_gated_scan", "rglru_scan_plain",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # ReproDType in common.cuh
+PALLAS = "rglru_scan_kernel"
 
 MAX_THREADS = 256  # threads of a block (as in the source)
 MAX_TILE_W = 32    # lanes of a block's tile: a warp across W
@@ -117,6 +118,7 @@ def rglru_scan(x: torch.Tensor, log_a: torch.Tensor, h0: torch.Tensor):
     """x, log_a (B,S,W); h0 (B,W), all fp32 -> (ys (B,S,W), h_last (B,W))
     fp32. On a CUDA tensor launches the kernel, on a CPU tensor runs the
     plain version."""
+    _build.refuse_grad("rglru_scan", PALLAS, x, log_a, h0)
     if not _build.use_kernel(x):
         return rglru_scan_plain(x, log_a, h0)
     _check(x, log_a, h0)
@@ -165,6 +167,8 @@ def rglru_gated_scan(xc: torch.Tensor, pre_i: torch.Tensor,
     bf16; h0 (B,W) fp32 -> (out (B,S,W) in pre_y's dtype, h_last (B,W)
     fp32), as ``ref.rglru_gated_scan`` computes them. On a CUDA tensor
     launches the kernel, on a CPU tensor runs the plain version."""
+    _build.refuse_grad("rglru_gated_scan", PALLAS, xc, pre_i, pre_r, lam,
+                       pre_y, h0)
     if not _build.use_kernel(xc):
         return rglru_gated_scan_plain(xc, pre_i, pre_r, lam, pre_y, h0)
     _check_gated(xc, pre_i, pre_r, lam, pre_y, h0)

@@ -27,6 +27,7 @@ __all__ = ["rmsnorm", "add_rmsnorm", "rmsnorm_plain", "add_rmsnorm_plain"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # ReproDType in common.cuh
+PALLAS = "rmsnorm_kernel"
 
 
 def _lib():
@@ -88,6 +89,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D); weight: (D,). On a CUDA tensor launches the kernel, on a
     CPU tensor runs the plain version."""
+    _build.refuse_grad("rmsnorm", PALLAS, x, weight)
     if not _build.use_kernel(x):
         return rmsnorm_plain(x, weight, eps=eps)
     return _launch(x, None, weight, eps)[1]
@@ -99,6 +101,7 @@ def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, *,
     y = rmsnorm(s, weight). x, r: (..., D) of one dtype; weight: (D,). On a
     CUDA tensor launches the kernel, on a CPU tensor runs the plain
     version."""
+    _build.refuse_grad("add_rmsnorm", PALLAS, x, r, weight)
     if not _build.use_kernel(x):
         return add_rmsnorm_plain(x, r, weight, eps=eps)
     return _launch(x, r, weight, eps)

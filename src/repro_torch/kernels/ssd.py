@@ -149,6 +149,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (y (b,s,h,p), final_state (b,h,p,n)) fp32, from a zero state. On a
     CUDA tensor launches the kernel, on a CPU tensor runs the plain
     version."""
+    _build.refuse_grad("ssd_scan", "ssd_scan_kernel", x, dt, A, B, C)
     if not _build.use_kernel(x):
         return ssd_scan_plain(x, dt, A, B, C)
     _check(x, dt, A, B, C, chunk)

@@ -1,1 +1,2 @@
-"""Entry points of the port: ``launch.serve``, the serving CLI."""
+"""Entry points of the port: ``launch.serve``, the serving CLI, and
+``launch.train``, the training CLI."""

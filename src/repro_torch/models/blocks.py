@@ -250,6 +250,30 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 GATES_FP32 = ("w_input_gate", "w_rec_gate")
 
 
+def widened_leaves(params, cfg: ModelConfig) -> list:
+    """The ``GATES_FP32`` leaves of a params tree where the config's weight
+    dtype is narrower than fp32: values of that dtype held in fp32. The JAX
+    package holds them in the weight dtype, so a trainer rounds them (and
+    their gradients) back to its grid after each update."""
+    if cfg.weight_dtype == torch.float32:
+        return []
+    found = []
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                if k in GATES_FP32:
+                    found.append(v)
+                else:
+                    walk(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v)
+
+    walk(params)
+    return found
+
+
 class RGLRUState(NamedTuple):
     h: torch.Tensor         # (B, lru_width) recurrent state, fp32
     conv: torch.Tensor      # (B, k-1, lru_width) conv tail

@@ -17,6 +17,7 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------------------
@@ -207,15 +208,21 @@ def tree_tensors(tree) -> Iterator[torch.Tensor]:
             yield from tree_tensors(v)
 
 
+def tree_map(fn, tree):
+    """A tree of the same containers with ``fn`` of each tensor, in
+    ``tree_tensors``' order."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return type(tree)(*(tree_map(fn, v) for v in tree))   # a named tuple
+
+
 def tree_clone(tree):
     """A copy of a cache tree, its containers alike, its tensors cloned."""
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    if isinstance(tree, dict):
-        return {k: tree_clone(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_clone(v) for v in tree]
-    return type(tree)(*(tree_clone(v) for v in tree))   # a named tuple
+    return tree_map(torch.Tensor.clone, tree)
 
 
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
@@ -357,3 +364,38 @@ def sinusoidal_positions(length: int, dim: int,
                          device="cuda") -> torch.Tensor:
     """The sinusoids of positions 0..length-1, (length, dim) fp32."""
     return sinusoids(torch.arange(length, device=device), dim)
+
+
+# ---------------------------------------------------------------------------
+# Training: the loss and rematerialisation
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean next-token loss. logits (B,S,V) of any float dtype, labels (B,S)
+    int: the logsumexp minus the label's logit in fp32 (in fp64 for fp64
+    logits), averaged over the tokens, or over those ``mask`` weights (at
+    least 1)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``, the counterpart of the JAX package's ``remat_wrap``
+    around a layer body: where ``enabled`` (``cfg.remat``), autograd is
+    recording and a tensor of ``args`` requires grad, it runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps the inputs
+    alone and recomputes the body's activations in the backward pass.
+    Otherwise (serving, the graph captures) it is the plain call."""
+    if enabled and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tree_tensors(args)):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)

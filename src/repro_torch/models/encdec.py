@@ -14,6 +14,7 @@ tokens):
     init(gen)                                   -> params
     encode(params, frames)                      -> encoder states (B,T,d)
     forward(params, tokens, frames)             -> (logits (B,S,V), 0)
+    loss(params, tokens, labels, frames, mask=None) -> scalar (training)
     prefill(params, tokens, frames, max_len)    -> (logits (B,1,V), cache)
     init_cache(batch, max_len, device)          -> cache (zeros)
     decode_step(params, token, cache, pos)      -> (logits (B,1,V), cache)
@@ -32,6 +33,9 @@ self-attention goes through ``attention_forward`` and ``attention_decode``,
 so with ``cfg.use_pallas`` it runs the flash-prefill and decode kernels;
 the encoder's bidirectional attention and the cross-attention run the plain
 ``gqa_attention`` (fp32 einsums) with or without it.
+
+With ``cfg.remat``, a forward that autograd records recomputes each
+encoder and decoder layer in the backward pass (``common.remat``).
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, dense_init, layer_norm,
-                                       sinusoidal_positions, sinusoids)
+                                       remat, sinusoidal_positions,
+                                       softmax_cross_entropy, sinusoids)
 
 
 def _ln(x, p):
@@ -100,23 +105,28 @@ class EncDecLM:
     # encoder
     # ------------------------------------------------------------------
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
-        """frames: (B, T_enc, d_model), the stubbed frontend's output. Runs
-        under ``torch.no_grad()``: at whisper-medium's 1500 frames a layer's
-        fp32 scores are 1.15 GB at batch 8, which autograd would keep."""
+        """frames: (B, T_enc, d_model), the stubbed frontend's output. A
+        caller that wants no graph (serving) calls it under
+        ``torch.no_grad()`` or with params that require no grad: at
+        whisper-medium's 1500 frames a layer's fp32 scores are 1.15 GB at
+        batch 8."""
         cfg = self.cfg
-        B, T, _ = frames.shape
-        with torch.no_grad():
-            x = frames + sinusoidal_positions(
-                T, cfg.d_model, frames.device).to(frames.dtype)[None]
-            for lp in params["enc_layers"]:
-                a = _ln(x, lp["attn_norm"])
-                q, k, v = attn._project_qkv(lp["attn"], self.self_cfg, a,
-                                            cfg.num_kv_heads)
-                y = attn.gqa_attention(q, k, v, None).reshape(B, T, -1)
-                x = x + y @ lp["attn"]["wo"].to(y.dtype)
-                x = x + blocks.ffn_forward(lp["ffn"], cfg,
-                                           _ln(x, lp["ffn_norm"]))
-            return _ln(x, params["enc_final_norm"])
+        T = frames.shape[1]
+        x = frames + sinusoidal_positions(
+            T, cfg.d_model, frames.device).to(frames.dtype)[None]
+        for lp in params["enc_layers"]:
+            x = remat(cfg.remat, self._enc_layer, lp, x)
+        return _ln(x, params["enc_final_norm"])
+
+    def _enc_layer(self, lp, x):
+        cfg = self.cfg
+        B, T, _ = x.shape
+        a = _ln(x, lp["attn_norm"])
+        q, k, v = attn._project_qkv(lp["attn"], self.self_cfg, a,
+                                    cfg.num_kv_heads)
+        y = attn.gqa_attention(q, k, v, None).reshape(B, T, -1)
+        x = x + y @ lp["attn"]["wo"].to(y.dtype)
+        return x + blocks.ffn_forward(lp["ffn"], cfg, _ln(x, lp["ffn_norm"]))
 
     def _cross_kv(self, params, enc_out):
         """Each decoder layer's cross K and V of the encoder states, stacked:
@@ -169,7 +179,8 @@ class EncDecLM:
         x = self._embed_tokens(params, tokens)
         caches = []
         for lp, ek, ev in zip(params["dec_layers"], cross_k, cross_v):
-            x, c = self._dec_layer_full(lp, x, ek, ev, cache_len)
+            x, c = remat(self.cfg.remat, self._dec_layer_full, lp, x, ek, ev,
+                         cache_len)
             caches.append(c)
         return x, caches, cross_k, cross_v
 
@@ -181,6 +192,12 @@ class EncDecLM:
         x, _, _, _ = self._run_decoder(params, tokens, frames)
         return (self._unembed(params, x),
                 torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def loss(self, params, tokens, labels, frames, mask=None):
+        """The next-token cross entropy of the teacher-forced forward; its
+        gradient reaches the encoder through the cross K/V."""
+        logits, _ = self.forward(params, tokens, frames)
+        return softmax_cross_entropy(logits, labels, mask)
 
     def prefill(self, params, tokens, frames, max_len=None):
         x, caches, cross_k, cross_v = self._run_decoder(params, tokens,

@@ -20,6 +20,8 @@ built once a forward or step and shared by the attention layers.
 
 A layer's last residual add is left to the next layer's first norm, or the
 final norm, which takes it in (``add_rms_norm``), as in the dense model.
+``loss`` is the next-token cross entropy; with ``cfg.remat`` each layer is
+recomputed in the backward pass (``common.remat``).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
-                                       model_rope)
+                                       model_rope, remat,
+                                       softmax_cross_entropy)
 
 
 class HybridLM:
@@ -121,12 +124,14 @@ class HybridLM:
         for up in params["units"]:
             caches = {}
             for i, kind in enumerate(self.pattern):
-                x, pending, caches[f"l{i}"] = self._layer_full(
-                    up[f"l{i}"], kind, x, pending, rope)
+                x, pending, caches[f"l{i}"] = remat(
+                    self.cfg.remat, self._layer_full, up[f"l{i}"], kind, x,
+                    pending, rope)
             unit_caches.append(caches)
         tail_caches = []
         for lp in params["tail"]:
-            x, pending, c = self._layer_full(lp, "rec", x, pending, rope)
+            x, pending, c = remat(self.cfg.remat, self._layer_full, lp,
+                                  "rec", x, pending, rope)
             tail_caches.append(c)
         return x, pending, {"units": unit_caches, "tail": tail_caches}
 
@@ -140,6 +145,10 @@ class HybridLM:
         x, pending, _ = self._run(params, x, positions)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._unembed(params, x, pending), aux
+
+    def loss(self, params, tokens, labels, mask=None):
+        logits, _ = self.forward(params, tokens)
+        return softmax_cross_entropy(logits, labels, mask)
 
     def prefill(self, params, tokens, max_len=None):
         B, S = tokens.shape

@@ -12,7 +12,9 @@ new states into it in place and returns it, holding the values that the JAX
 package's functional step returns.
 
 A layer's residual add is left to the next layer's norm, or the final norm,
-which takes it in (``add_rms_norm``), as in the dense model.
+which takes it in (``add_rms_norm``), as in the dense model. ``loss`` is
+the next-token cross entropy; with ``cfg.remat`` each layer is
+recomputed in the backward pass (``common.remat``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from typing import Any
 import torch
 
 from repro_torch.models import blocks
-from repro_torch.models.common import ModelConfig, add_rms_norm, dense_init
+from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
+                                       remat, softmax_cross_entropy)
 
 
 class MambaLM:
@@ -64,18 +67,26 @@ class MambaLM:
         cfg = self.cfg
         states, y = [], None
         for lp in params["layers"]:
-            x, r = add_rms_norm(x, y, lp["norm"], cfg.norm_eps,
-                                cfg.use_pallas)
-            y, state = blocks.ssd_block_forward(lp["mixer"], cfg, r)
+            x, y, state = remat(cfg.remat, self._layer, lp, x, y)
             if collect_state:
                 states.append(state)
         return x, y, states
+
+    def _layer(self, lp, x, y):
+        """(x, y) in and (x, y, state) out: the layer's input is x + y."""
+        cfg = self.cfg
+        x, r = add_rms_norm(x, y, lp["norm"], cfg.norm_eps, cfg.use_pallas)
+        return (x,) + blocks.ssd_block_forward(lp["mixer"], cfg, r)
 
     def forward(self, params, tokens, positions=None):
         x = self._embed(params, tokens)
         x, y, _ = self._run(params, x, collect_state=False)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._unembed(params, x, y), aux
+
+    def loss(self, params, tokens, labels, mask=None):
+        logits, _ = self.forward(params, tokens)
+        return softmax_cross_entropy(logits, labels, mask)
 
     def prefill(self, params, tokens, max_len=None):
         x = self._embed(params, tokens)

@@ -5,6 +5,7 @@ with GQA or MLA (DeepSeek-V2) attention.
 Model contract (the JAX package's, with tensors for pytrees):
     init(gen)                                -> params
     forward(params, tokens)                  -> (logits (B,S,V), aux)
+    loss(params, tokens, labels, mask=None)  -> scalar (training)
     prefill(params, tokens, max_len)         -> (logits (B,1,V), cache)
     init_cache(batch, max_len, device)       -> cache (zeros)
     decode_step(params, token, cache, pos)   -> (logits (B,1,V), cache)
@@ -22,6 +23,9 @@ layers' load-balance losses (0 for a dense model). The cache is
 ``stacked`` the same with a leading layer axis. ``decode_step`` updates it
 in place: it writes each layer's new entries into the cache it was given
 and returns that same cache.
+
+With ``cfg.remat``, a forward that autograd records recomputes each
+layer's activations in the backward pass (``common.remat``).
 
 The rope tables and, in a decode step, the cache slots written and read
 are built once a forward or step and shared by every layer.
@@ -41,7 +45,8 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
-                                       model_rope)
+                                       model_rope, remat,
+                                       softmax_cross_entropy)
 
 
 class DecoderOnlyLM:
@@ -147,8 +152,8 @@ class DecoderOnlyLM:
         caches, pending, aux = [], None, None
         rope = model_rope(self.cfg, positions)
         for lp in params["prefix"] + params["layers"]:
-            x, pending, c, a = self._layer_full(lp, x, pending, rope,
-                                                cache_len=cache_len)
+            x, pending, c, a = remat(self.cfg.remat, self._layer_full, lp, x,
+                                     pending, rope, cache_len)
             if a is not None:
                 aux = a if aux is None else aux + a
             if collect_cache:
@@ -168,6 +173,12 @@ class DecoderOnlyLM:
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._unembed(params, x, pending), aux
+
+    def loss(self, params, tokens, labels, mask=None):
+        """The next-token cross entropy plus 0.01 x the MoE load-balance
+        loss (0 for a dense model)."""
+        logits, aux = self.forward(params, tokens)
+        return softmax_cross_entropy(logits, labels, mask) + 0.01 * aux
 
     def prefill(self, params, tokens, max_len=None):
         B, S = tokens.shape

@@ -15,7 +15,9 @@ versions. A bf16 output must also lie within a relative L2 of 1e-3 of the
 plain version's, as ``chip_smoke.py`` holds it (``BF16_REL_L2``).
 ``TorchBackend``'s CUDA graphs must replay their eager steps bit for bit.
 The MoE expert products on the card must be as exact as the widened fp32
-product, against fp64.
+product, against fp64. A reduced fp32 model's loss and gradients on the
+card must match the CPU's (loss 1e-5 relative, gradients 1e-4 in relative
+L2, TF32 off), and every kernel wrapper must refuse autograd there.
 """
 import hashlib
 import time
@@ -33,7 +35,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rglru as lru
 from repro_torch.kernels import rmsnorm as rms
 from repro_torch.kernels import ssd
-from repro_torch.models import build_model, tree_clone, tree_tensors
+from repro_torch.models import (build_model, tree_clone, tree_map,
+                                tree_tensors)
 from repro_torch.serving import TorchBackend
 
 pytestmark = pytest.mark.cuda
@@ -714,3 +717,99 @@ def test_a_failed_capture_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA graph failed"):
         TorchBackend(get_config("tinyllama-1.1b").reduced(), max_batch=2,
                      cache_len=32, device=cuda)
+
+
+# -- training on the card ------------------------------------------------
+
+def _rel_l2(a, b) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-1.3b",
+                                  "recurrentgemma-9b",
+                                  "deepseek-v2-lite-16b", "whisper-medium"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch, arch):
+    """A reduced fp32 model's loss and gradients on the card against the
+    CPU on the same weights and batch (loss 1e-5 relative, every gradient
+    leaf 1e-4 in relative L2), TF32 off; then one train step on each: the
+    same loss, and params 1e-4 apart."""
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.training import init_adamw, make_train_step
+    from repro_torch.training.train_loop import to_device
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    batch = next(synthetic_token_batches(
+        cfg.vocab_size, 2, 16, seed=0, with_frames=cfg.is_encoder_decoder,
+        frame_len=cfg.encoder_seq, d_model=cfg.d_model))
+    losses, grads = [], []
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        b = to_device(batch, dev)
+        for t in tree_tensors(params):
+            t.requires_grad_(True)
+        args = [b["tokens"], b["labels"]] + (
+            [b["frames"]] if "frames" in b else [])
+        loss = model.loss(params, *args)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append([t.grad for t in tree_tensors(params)])
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    assert max(_rel_l2(g, c) for g, c in zip(*grads)) <= 1e-4
+    metrics = []
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        step = make_train_step(model)
+        _, _, m = step(params, init_adamw(params), to_device(batch, dev))
+        metrics.append(m)
+    assert abs(float(metrics[1]["loss"]) - float(metrics[0]["loss"])) <= \
+        1e-5 * abs(float(metrics[0]["loss"]))
+    assert max(_rel_l2(g, c) for g, c in zip(tree_tensors(card),
+                                            tree_tensors(cpu))) <= 1e-4
+
+
+def _refusal_cases(device):
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g).to(device)
+
+    x, w = r(2, 8, 64), r(64)
+    q, k, v = r(1, 8, 4, 64), r(1, 8, 2, 64), r(1, 8, 2, 64)
+    valid = torch.ones((1, 8), dtype=torch.bool, device=device)
+    sx, sdt = r(1, 8, 2, 16), r(1, 8, 2).abs()
+    sA, sB, sC = -r(2).abs(), r(1, 8, 1, 16), r(1, 8, 1, 16)
+    lx, la, h0 = r(1, 8, 32), -r(1, 8, 32).abs(), r(1, 32)
+    lam = r(32).abs()
+    return {
+        "rmsnorm": (ops.rmsnorm, (x, w)),
+        "add_rmsnorm": (ops.add_rmsnorm, (x, x + 1, w)),
+        "flash_attention": (ops.flash_attention, (q, k, v)),
+        "decode_attention": (ops.decode_attention, (q[:, :1], k, v, valid)),
+        "ssd_scan": (ops.ssd_scan, (sx, sdt, sA, sB, sC)),
+        "rglru_scan": (ops.rglru_scan, (lx, la, h0)),
+        "rglru_gated_scan": (ops.rglru_gated_scan,
+                             (lx, lx, lx, lam, lx, h0)),
+    }
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "add_rmsnorm",
+                                  "flash_attention", "decode_attention",
+                                  "ssd_scan", "rglru_scan",
+                                  "rglru_gated_scan"])
+def test_kernel_wrappers_refuse_autograd_on_the_card(cuda, name):
+    """Each wrapper, given CUDA tensors of which one requires grad, raises
+    and launches nothing; under ``torch.no_grad()`` it launches."""
+    wrapper, args = _refusal_cases(cuda)[name]
+    for i in [i for i, a in enumerate(args) if a.is_floating_point()]:
+        call = [a.clone().requires_grad_(j == i) if a.is_floating_point()
+                else a for j, a in enumerate(args)]
+        before = launch_counts()
+        with pytest.raises(RuntimeError, match=f"^{name} has no gradient"):
+            wrapper(*call)
+        assert launch_counts() == before
+        with torch.no_grad():
+            wrapper(*call)
+        torch.cuda.synchronize()
+        assert launch_counts() != before

@@ -40,7 +40,16 @@ for fn in (blocks.init_moe, blocks.moe_forward_dense,
            attention.mla_forward, attention.mla_decode,
            attention.flash_attention_chunked, attention.cross_attention,
            attention.encoder_kv, common.layer_norm,
-           common.sinusoidal_positions, encdec.EncDecLM):
+           common.sinusoidal_positions, encdec.EncDecLM,
+           common.softmax_cross_entropy, common.remat):
+    assert callable(fn)
+# the training path, imported above without JAX or repro
+from repro_torch import training
+from repro_torch.data import synthetic_token_batches
+from repro_torch.launch import train
+for fn in (training.adamw_update, training.make_train_step, training.train,
+           training.save_checkpoint, training.load_checkpoint,
+           synthetic_token_batches, train.main):
     assert callable(fn)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
@@ -50,8 +59,10 @@ print(" ".join(names))
 
 # the modules of the SSM and hybrid path, the CUDA graphs and the baseline
 # policies, those that hold the MoE blocks, MLA, the chunked reference and
-# the MoE/MLA decoder, the encoder-decoder, and the Azure trace, phased
-# tuner, fleet layer and serve CLI, which the walk must reach
+# the MoE/MLA decoder, the encoder-decoder, the Azure trace, phased tuner,
+# fleet layer and serve CLI, and the training path (optimizer, train loop,
+# checkpoints, the synthetic data and the train CLI), which the walk must
+# reach
 PATH_MODULES = {"repro_torch.kernels.ssd", "repro_torch.kernels.rglru",
                 "repro_torch.models.ssm", "repro_torch.models.hybrid",
                 "repro_torch.serving.graphs", "repro_torch.policies.fixed",
@@ -68,7 +79,11 @@ PATH_MODULES = {"repro_torch.kernels.ssd", "repro_torch.kernels.rglru",
                 "repro_torch.serving.network", "repro_torch.serving.faults",
                 "repro_torch.serving.fleet_step",
                 "repro_torch.serving.cluster", "repro_torch.launch",
-                "repro_torch.launch.serve"}
+                "repro_torch.launch.serve", "repro_torch.training",
+                "repro_torch.training.optimizer",
+                "repro_torch.training.train_loop",
+                "repro_torch.training.checkpoint", "repro_torch.data",
+                "repro_torch.data.pipeline", "repro_torch.launch.train"}
 
 
 def _sources():
@@ -87,7 +102,7 @@ def test_every_module_imports_without_jax_or_repro():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 74 and PATH_MODULES <= names
+    assert len(names) >= 81 and PATH_MODULES <= names
 
 
 def test_cuda_sources_include_only_cuda_headers():
