@@ -112,6 +112,18 @@ failure, or when there is no card or no checkout beside it. Phases:
    its plain version on its inputs at BF16_REL_L2, the forward's logits
    to fp32 as phase 3 holds them; last, a loss through the kernels on
    params that require grad must raise the wrappers' ``RuntimeError``.
+8. Distribution: the port's dry-run of (tinyllama-1.1b, train_4k) on the
+   2x4 debug mesh over a fake process group, on this machine's torch;
+   then, on a one-rank NCCL group and its 1x1 mesh, full-width llama3-3b
+   in bf16 with no kernels: phase 7's train step on params and AdamW
+   state placed by the port's sharding rules must equal the plain step
+   bit for bit (loss, gradient norm, every leaf); the dry-run's counts of
+   that step must equal the card's (its argument bytes the allocator's
+   requested bytes for the placed arguments, exactly, and
+   ``memory_allocated``'s rise within the allocator's rounding; its FLOPs
+   ``FlopCounterMode``'s; no collective bytes); a 64-token prefill and 4
+   decode steps through placed params and a placed 2048-slot cache must
+   give the plain path's logits bit for bit. No kernel may launch.
 
 The last lines are a JSON object with each kernel's numbers (a row per
 kernel and timed shape; its launches are those of the serve runs whose
@@ -227,6 +239,19 @@ TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
 REMAT_BATCH, REMAT_SEQ = 8, 512
 SERVE_PROMPT, SERVE_MAX_LEN, SERVE_BATCH, SERVE_STEPS = 64, 2048, 8, 4
 TRAINED_RUN = "llama3-3b trained"  # phase 7's key in the kernels line
+# phase 8: the distribution layer on one card: the dry-run of this pair on
+# the 2x4 debug mesh, then full-width llama3-3b (bf16, no kernels) placed
+# on a 1x1 mesh of a one-rank NCCL group: phase 7's 8 x 128 train step
+# placed and plain, and a prefill of DIST_PROMPT tokens and DIST_STEPS
+# decode steps through a DIST_SLOTS-slot cache of batch DIST_BATCH
+DIST_DRYRUN = ("tinyllama-1.1b", "train_4k")
+DIST_ARCH = "llama3-3b"
+DIST_PROMPT, DIST_SLOTS, DIST_BATCH, DIST_STEPS = 64, 2048, 8, 4
+# the caching allocator's requested bytes are the bytes asked for, to the
+# byte; the bytes it allocates round each block up to 512 and keep with a
+# block cut from a large segment a remainder under 1 MiB (it splits off
+# no less): allocated may exceed requested by under 1 MiB a leaf
+ALLOC_SLACK = 1 << 20
 WHISPER_CHECKED = 3        # replays held to the eager step bit for bit
 WHISPER_FP32_LAYERS = 4    # the fp32 checks: 4 encoder + 4 decoder layers
 # its decoder's self-attention: 16 query heads over 16 kv heads of 64
@@ -2145,6 +2170,234 @@ def train_phase(torch, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the distribution layer
+# ---------------------------------------------------------------------------
+
+def dist_phase(torch, dev):
+    """Phase 8: (a) the port's dry-run of DIST_DRYRUN on the 2x4 debug mesh
+    over a fake group, on this machine's torch; then on a one-rank NCCL
+    group and its 1x1 mesh, full-width DIST_ARCH in bf16 with no kernels:
+    (b) phase 7's train step on params and AdamW state placed by the
+    port's rules equals the plain step bit for bit (loss, gradient norm,
+    every updated leaf); (c) the dry-run's counts of that step (1x1, fake
+    tensors) equal the card's: its argument bytes the memory the placed
+    arguments took, its FLOPs ``FlopCounterMode``'s of the plain step and
+    ``StepCounter``'s of the placed one, no collective bytes; (d) a prefill
+    and DIST_STEPS decode steps through placed params and a placed cache
+    give the plain path's logits bit for bit. No kernel may launch."""
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    before = launch_counts()
+    arch, shape = DIST_DRYRUN
+    r = dryrun.run_one(arch, shape, debug_mesh=True, verbose=False)
+    say(f"  (a) dry-run {arch} x {shape} x {r['mesh']} (fake group of "
+        f"{r['devices']}): flops {r['flops']:.4e} (global "
+        f"{r['flops_global']:.4e}), collective bytes "
+        f"{r['collective_bytes']['total']}, argument bytes "
+        f"{r['memory']['argument_size_bytes']}, {r['compile_s']} s")
+    counts = dist_counts(torch, dryrun)
+    if dist.is_initialized():
+        fail("the dry-run left a process group set up")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        from repro_torch.launch.mesh import make_debug_mesh
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        say(f"  NCCL group of 1, mesh {mesh}")
+        placed_train_step(torch, dev, mesh, counts)
+        placed_decode(torch, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    if launch_counts() != before:
+        fail(f"phase 8 launched port kernels: {before} -> {launch_counts()}")
+    say(f"  phase 8: {time.perf_counter() - t0:.1f} s wall; no port kernel "
+        "launched")
+
+
+def dist_counts(torch, dryrun):
+    """The dry-run's counts of DIST_ARCH's TRAIN_BATCH x TRAIN_SEQ train
+    step on a 1x1 mesh over a fake group, on meta tensors."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.distributed.sharding import local_bytes
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import tree_tensors
+    shape = InputShape(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ,
+                       TRAIN_BATCH, "train")
+    with dryrun.fake_process_group(1):
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        fn, args = dryrun.build_lowering(
+            DIST_ARCH, "train_4k", mesh, cfg_override=model_config(DIST_ARCH),
+            shape=shape)
+        arg_bytes = local_bytes(args)
+        _, counter = dryrun.count_step(fn, args)
+        _, whole = dryrun.count_step(*dryrun.build_lowering(
+            DIST_ARCH, "train_4k", mesh, cfg_override=model_config(DIST_ARCH),
+            shape=shape, place=False))
+    return {"argument_size_bytes": arg_bytes, "flops": counter.flops,
+            "flops_global": whole.flops,
+            "collective_bytes": counter.collective_bytes()["total"],
+            "temp_size_bytes": None,
+            "leaves": len(list(tree_tensors(args)))}
+
+
+def dist_batch(torch, dev, cfg):
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.training.train_loop import to_device
+    return to_device(next(synthetic_token_batches(
+        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)), dev)
+
+
+def placed_train_step(torch, dev, mesh, counts):
+    """Phase 8 (b) and (c); see ``dist_phase``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.distributed import (batch_pspec, param_pspecs,
+                                         with_sharding)
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model, tree_tensors
+    from repro_torch.models.common import init_shapes
+    from repro_torch.training import init_adamw, make_train_step
+    cfg = model_config(DIST_ARCH)
+    model = build_model(cfg)
+    step = make_train_step(model)
+    batch = dist_batch(torch, dev, cfg)
+
+    def init():
+        return model.init(torch.Generator(device=dev).manual_seed(0))
+
+    # the plain step under FlopCounterMode, which decomposes some ops it
+    # has no formula for (rounding them otherwise), then the plain step
+    params = init()
+    with FlopCounterMode(display=False) as fc:
+        step(params, init_adamw(params), batch)
+    card_flops = fc.get_total_flops()
+    del params
+    params = init()
+    params, opt, m = step(params, init_adamw(params), batch)
+    torch.cuda.synchronize()
+    plain = [t.detach().to("cpu") for t in tree_tensors((params, opt, m))]
+    del params, opt, m
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    r0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    p_specs = param_pspecs(init_shapes(model), mesh)
+    params = with_sharding(init(), p_specs, mesh)
+    opt0 = init_adamw(params)
+    opt = with_sharding(opt0, dryrun.param_pspecs_like_opt(opt0, p_specs),
+                        mesh)
+    del opt0
+    pbatch = {k: with_sharding(v, batch_pspec(mesh, TRAIN_BATCH), mesh)
+              for k, v in batch.items()}
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - m0
+    asked = torch.cuda.memory_stats()["requested_bytes.all.current"] - r0
+    want = counts["argument_size_bytes"]
+    say(f"  (c) placed params, AdamW state and batch: the allocator's "
+        f"requested bytes rose {asked} B, torch.cuda.memory_allocated() "
+        f"{rise} B; the dry-run's argument_size_bytes {want} "
+        f"({counts['leaves']} leaves; allocated may exceed it by under "
+        f"{ALLOC_SLACK} B a leaf)")
+    if asked != want or not want <= rise < want + ALLOC_SLACK * counts[
+            "leaves"]:
+        fail("the dry-run's argument bytes are not the bytes placed")
+
+    def placed_step(*a):
+        with implicit_replication():
+            return step(*a)
+
+    torch.cuda.reset_peak_memory_stats()
+    (params, opt, pm), counter = dryrun.count_step(placed_step,
+                                                   (params, opt, pbatch))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    from torch.distributed.tensor import DTensor
+    got = [t.to_local() if isinstance(t, DTensor) else t
+           for t in tree_tensors((params, opt, pm))]
+    same = [torch.equal(a.to(dev), b) for a, b in zip(plain, got)]
+    say(f"  (b) {DIST_ARCH} train step {TRAIN_BATCH} x {TRAIN_SEQ}, placed "
+        f"on 1x1 vs plain: loss {float(pm['loss'].full_tensor()):.6f} vs "
+        f"{float(plain[-3]):.6f}, grad norm "
+        f"{float(pm['grad_norm'].full_tensor()):.6f} vs "
+        f"{float(plain[-2]):.6f}; {sum(same)} of {len(same)} leaves and "
+        "metrics equal (torch.equal)")
+    if len(got) != len(plain) or not all(same):
+        fail("the placed train step differs from the plain step")
+    say(f"  (c) FLOPs: dry-run flops {counts['flops']:.6e} (global "
+        f"{counts['flops_global']:.6e}); FlopCounterMode on the plain step "
+        f"{card_flops:.6e}; StepCounter on the placed step "
+        f"{counter.flops:.6e}; collective bytes: dry-run "
+        f"{counts['collective_bytes']}, card "
+        f"{counter.collective_bytes()['total']}")
+    if not counts["flops"] == counts["flops_global"] == card_flops \
+            == counter.flops:
+        fail("the dry-run's FLOPs are not the card's")
+    if counts["collective_bytes"] or counter.collective_bytes()["total"]:
+        fail("collective bytes on a 1x1 mesh")
+    say(f"  (c) temp_size_bytes: dry-run {counts['temp_size_bytes']} (not "
+        f"counted); the placed step's peak {peak} B "
+        f"(torch.cuda.max_memory_allocated, the {rise} B of arguments "
+        f"included); card: {card_line()}")
+    del params, opt, pm, pbatch, got, plain
+    torch.cuda.empty_cache()
+
+
+def placed_decode(torch, dev, mesh):
+    """Phase 8 (d); see ``dist_phase``."""
+    import numpy as np
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import (PSpec, cache_pspecs, param_pspecs,
+                                         with_sharding)
+    from repro_torch.models import build_model, tree_tensors
+    cfg = model_config(DIST_ARCH)
+    model = build_model(cfg)
+    B, S = DIST_BATCH, DIST_PROMPT
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (B, S + DIST_STEPS), dtype=np.int32)).to(dev)
+
+    def run(params, cache, place):
+        out = []
+        with torch.no_grad(), implicit_replication():
+            lg, pre = model.prefill(params, place(toks[:, :S],
+                                                  PSpec(None, None)),
+                                    max_len=DIST_SLOTS)
+            out.append(lg)
+            for dst, src in zip(tree_tensors(cache), tree_tensors(pre)):
+                dst.copy_(src)
+            del pre
+            for i in range(DIST_STEPS):
+                lg, cache = model.decode_step(
+                    params, place(toks[:, S + i:S + i + 1], PSpec(None, None)),
+                    cache, place(torch.full((B,), S + i, dtype=torch.int32,
+                                            device=dev), PSpec(None)))
+                out.append(lg)
+        return [t.full_tensor() if hasattr(t, "full_tensor") else t
+                for t in out]
+
+    def init():
+        return model.init(torch.Generator(device=dev).manual_seed(0))
+
+    plain = run(init(), model.init_cache(B, DIST_SLOTS, device=dev),
+                lambda t, s: t)
+    params, cache = init(), model.init_cache(B, DIST_SLOTS, device=dev)
+    placed = run(with_sharding(params, param_pspecs(params, mesh), mesh),
+                 with_sharding(cache, cache_pspecs(cache, mesh, B), mesh),
+                 lambda t, s: with_sharding(t, s, mesh))
+    same = [torch.equal(a, b) for a, b in zip(placed, plain)]
+    say(f"  (d) prefill of {B} x {S} and {DIST_STEPS} decode steps through "
+        f"a {DIST_SLOTS}-slot cache, placed vs plain: {sum(same)} of "
+        f"{len(same)} logits equal (torch.equal)")
+    if len(same) != 1 + DIST_STEPS or not all(same):
+        fail("placed prefill or decode logits differ from the plain path's")
+    del params, cache, placed, plain
+    torch.cuda.empty_cache()
+
+
 def model_config(name):
     """The model's config at full width, at the depth one card holds."""
     from repro_torch.configs import get_config
@@ -2209,6 +2462,11 @@ def main() -> None:
     say("== phase 7: training: fp32 gradients vs fp64, full-depth "
         f"{TRAIN_ARCH} trained, its checkpoint and its weights served")
     counts[TRAINED_RUN] = train_phase(torch, dev)
+    torch.cuda.empty_cache()
+
+    say("== phase 8: the distribution layer: the dry-run, and full-width "
+        f"{DIST_ARCH} placed on a 1x1 mesh against the plain path")
+    dist_phase(torch, dev)
     torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,0 +1,420 @@
+"""Multi-pod dry-run of the port: prove every (architecture x input-shape x
+mesh) combination places and runs, the counterpart of
+``repro.launch.dryrun``.
+
+For each combination this builds the step (train_step / prefill /
+serve_step) over params, optimizer state, inputs and cache placed on the
+mesh as DTensors (``repro_torch.distributed.sharding``) of meta tensors (no
+memory), and runs it once over a ``fake`` process group as wide as the
+mesh: the stand-in for the JAX package's 512 host placeholder devices. The
+run is the proof. It reports, with the JAX package's keys:
+
+* ``flops``: the matmul FLOPs of one rank's local ops (what the JAX package
+  reads from ``cost_analysis()`` of the partitioned module), and
+  ``flops_global`` beside it, those of the same step run once more with
+  nothing placed: the whole program's;
+* ``bytes_accessed``: the bytes one rank's local ops read and write, each op
+  apart (no fusion; views excluded);
+* ``collective_bytes``: result bytes of the functional collectives
+  (``_c10d_functional.*``) that DTensor issues, an all-reduce counted twice,
+  as the JAX package counts them in its HLO (``collective_bytes``);
+* ``memory``: one rank's bytes of the arguments and of the outputs, from
+  the local shapes; there is no compiled program, so ``temp_size_bytes``
+  and ``generated_code_size_bytes`` are None.
+
+``compile_s`` is the seconds to build and run the step on meta tensors.
+Every count is taken on the CPU and is not a speed. The port keeps its
+layers as lists, so every layer is counted and ``--cost-extrapolate`` has
+nothing to extrapolate: its block holds the full-depth counts.
+
+No process group is set up at import: ``run_one`` sets one up and destroys
+it.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
+  python -m repro_torch.launch.dryrun --all --mesh both --out results/dryrun
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import re
+import time
+
+import torch
+import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch.configs import ASSIGNED_ARCHS, config_for_shape, get_shape
+from repro_torch.distributed.sharding import (PSpec, batch_pspec,
+                                              cache_pspecs, local_bytes,
+                                              param_pspecs, with_sharding)
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+from repro_torch.models import build_model
+from repro_torch.models.common import init_shapes
+from repro_torch.training.optimizer import AdamWConfig, init_adamw
+from repro_torch.training.train_loop import make_train_step
+
+_DTYPE_BYTES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2, "s64": 8, "s32": 4,
+                "u64": 8, "u32": 4, "s16": 2, "u16": 2, "s8": 1, "u8": 1,
+                "pred": 1, "f8e4m3": 1, "f8e5m2": 1}
+
+
+def collective_bytes(hlo_text: str) -> dict:
+    """Sum result bytes of collective ops in the (SPMD-partitioned) HLO.
+    Convention: all-reduce counted 2x (ring send+recv), others 1x."""
+    out = {"all-reduce": 0, "all-gather": 0, "reduce-scatter": 0,
+           "all-to-all": 0, "collective-permute": 0}
+    for line in hlo_text.splitlines():
+        s = line.strip()
+        m = re.match(r"^%?[\w.\-]+ = ([a-z0-9]+)\[([\d,]*)\]", s)
+        if not m:
+            continue
+        op = None
+        for cand in out:
+            if re.search(rf"\b{cand}(-start|-done)?\(", s):
+                op = cand
+                break
+        if op is None:
+            continue
+        dt, dims = m.group(1), m.group(2)
+        nb = _DTYPE_BYTES.get(dt, 4)
+        n = 1
+        for d in dims.split(","):
+            if d:
+                n *= int(d)
+        out[op] += n * nb * (2 if op == "all-reduce" else 1)
+    out["total"] = sum(v for k, v in out.items())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# counting: one dispatch mode over the step
+# ---------------------------------------------------------------------------
+
+# the functional collectives by the HLO op each stands for
+_FUNCOL_KIND = (("all_reduce", "all-reduce"), ("all_gather", "all-gather"),
+                ("reduce_scatter", "reduce-scatter"),
+                ("all_to_all", "all-to-all"),
+                ("broadcast", "collective-permute"))
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(t) for t in tree)
+    return 0
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts one rank's work in a step as ``run_one`` reports it. An op on
+    DTensors is handed on to DTensor (``NotImplemented``), which runs the
+    rank's local ops, and the collectives it needs, with this mode still
+    active: those, and ops on plain tensors, are what ``flops``,
+    ``bytes_accessed`` and ``collectives`` count. An op on another tensor
+    subclass is not counted. FLOPs come from ``torch.utils.flop_counter``'s
+    formulas, ``FlopCounterMode``'s own."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes_accessed = 0
+        self.collectives = {kind: 0 for _, kind in _FUNCOL_KIND}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented       # its local ops follow
+        out = func(*args, **kwargs)
+        if types:
+            # the fake tensors DTensor's sharding propagation learns an
+            # output's shape from
+            return out
+        packet = func._overloadpacket
+        if func.namespace in ("_c10d_functional",
+                              "_c10d_functional_autograd"):
+            name = func.__name__
+            for key, kind in _FUNCOL_KIND:
+                if name.startswith(key):
+                    self.collectives[kind] += _nbytes(out) * (
+                        2 if kind == "all-reduce" else 1)
+            return out
+        if packet in flop_registry:
+            self.flops += flop_registry[packet](*args, **kwargs,
+                                                out_val=out)
+        if not func.is_view:
+            self.bytes_accessed += (_nbytes(list(args))
+                                    + _nbytes(list(kwargs.values()))
+                                    + _nbytes(out))
+        return out
+
+    def collective_bytes(self) -> dict:
+        out = dict(self.collectives)
+        out["total"] = sum(out.values())
+        return out
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors; never allocates)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg, shape):
+    """Model inputs for the given InputShape (tokens/labels/frames...), as
+    meta tensors."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def sds(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind == "train":
+        batch = {"tokens": sds((B, S), torch.int32),
+                 "labels": sds((B, S), torch.int32)}
+        if cfg.is_encoder_decoder:
+            batch["frames"] = sds((B, cfg.encoder_seq, cfg.d_model),
+                                  cfg.activation_dtype)
+        return batch
+    if shape.kind == "prefill":
+        out = {"tokens": sds((B, S), torch.int32)}
+        if cfg.is_encoder_decoder:
+            out["frames"] = sds((B, cfg.encoder_seq, cfg.d_model),
+                                cfg.activation_dtype)
+        return out
+    # decode: one token against a seq_len-deep cache
+    return {"token": sds((B, 1), torch.int32),
+            "pos": sds((B,), torch.int32)}
+
+
+def param_pspecs_like_opt(opt_state, p_specs):
+    """Optimizer state: step replicated; moments shard like params."""
+    return type(opt_state)(step=PSpec(), m=p_specs, v=p_specs)
+
+
+# ---------------------------------------------------------------------------
+# build the step per shape kind
+# ---------------------------------------------------------------------------
+
+def build_lowering(arch: str, shape_name: str, mesh, *, cfg_override=None,
+                   shape=None, place: bool = True):
+    """(fn, args): the step of ``shape_name``'s kind (or of ``shape``, an
+    ``InputShape`` given in its place) and its arguments, meta tensors, each
+    a DTensor on ``mesh`` (plain with ``place`` False). ``fn(*args)`` runs
+    the step; plain tensors made inside it (positions, masks, rope tables)
+    are taken as replicated (``implicit_replication``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    shape = shape or get_shape(shape_name)
+    cfg = cfg_override or config_for_shape(arch, shape_name)
+    # the dry-run runs the plain path (the kernels are card-only)
+    cfg = cfg.replace(use_pallas=False)
+    model = build_model(cfg)
+    B, S = shape.global_batch, shape.seq_len
+
+    def placed(tree, specs):
+        return with_sharding(tree, specs, mesh) if place else tree
+
+    params = init_shapes(model)
+    p_specs = param_pspecs(params, mesh)
+    params_in = placed(params, p_specs)
+    inputs = input_specs(cfg, shape)
+    inputs_in = {k: placed(v, batch_pspec(mesh, B, extra_dims=v.ndim - 1))
+                 for k, v in inputs.items()}
+
+    if shape.kind == "train":
+        opt = init_adamw(params)
+        opt_in = placed(opt, param_pspecs_like_opt(opt, p_specs))
+        step = make_train_step(model, AdamWConfig())
+
+        def train_fn(params, opt_state, batch):
+            with implicit_replication():
+                return step(params, opt_state, batch)
+        return train_fn, (params_in, opt_in, inputs_in)
+
+    if shape.kind == "prefill":
+        def prefill_fn(params, batch):
+            with implicit_replication(), torch.no_grad():
+                if cfg.is_encoder_decoder:
+                    return model.prefill(params, batch["tokens"],
+                                         batch["frames"], max_len=S)
+                return model.prefill(params, batch["tokens"], max_len=S)
+        return prefill_fn, (params_in, inputs_in)
+
+    # decode
+    cache = model.init_cache(B, S, device="meta")
+    cache_in = placed(cache, cache_pspecs(cache, mesh, B))
+
+    def serve_step(params, token, cache, pos):
+        with implicit_replication(), torch.no_grad():
+            return model.decode_step(params, token, cache, pos)
+    return serve_step, (params_in, inputs_in["token"], cache_in,
+                        inputs_in["pos"])
+
+
+# ---------------------------------------------------------------------------
+# depth: every layer is counted (no extrapolation)
+# ---------------------------------------------------------------------------
+
+def _scan_length(cfg) -> int:
+    if cfg.arch_type == "hybrid":
+        pat = len(cfg.block_pattern or ("rec", "rec", "attn"))
+        return cfg.num_layers // pat
+    prefix = cfg.first_k_dense if cfg.num_experts else 0
+    return cfg.num_layers - prefix
+
+
+def _full_depth_block(result: dict, cfg) -> dict:
+    """The ``extrapolated`` block of the JAX package, from the full-depth
+    counts: the port's layers are lists, so nothing is extrapolated."""
+    return {"flops": result["flops"],
+            "bytes_accessed": result["bytes_accessed"],
+            "collective_bytes": dict(result["collective_bytes"]),
+            "scan_length": _scan_length(cfg),
+            "u2_temp_bytes": None,
+            "u2_arg_bytes": result["memory"]["argument_size_bytes"],
+            "note": "full depth: every layer counted (the port's layers "
+                    "are lists), not extrapolated"}
+
+
+# ---------------------------------------------------------------------------
+# runner
+# ---------------------------------------------------------------------------
+
+def mesh_shape(*, multi_pod: bool = False, debug_mesh: bool = False):
+    if debug_mesh:
+        return (2, 2, 4) if multi_pod else (2, 4)
+    return (2, 16, 16) if multi_pod else (16, 16)
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int):
+    """A ``fake`` process group of ``world_size`` ranks, this one rank 0,
+    for the span of the block: its collectives return at once and move no
+    data. Raises if a process group is already set up."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already set up")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def count_step(fn, args):
+    """Run ``fn(*args)`` once under a ``StepCounter``: (its output, the
+    counter)."""
+    with StepCounter() as counter:
+        out = fn(*args)
+    return out, counter
+
+
+def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
+            debug_mesh: bool = False, verbose: bool = True,
+            extrapolate: bool = False, cfg_override=None) -> dict:
+    t0 = time.time()
+    shp = mesh_shape(multi_pod=multi_pod, debug_mesh=debug_mesh)
+    n_dev = 1
+    for v in shp:
+        n_dev *= v
+    with fake_process_group(n_dev):
+        if debug_mesh:
+            mesh = make_debug_mesh(multi_pod=multi_pod, device_type="cpu")
+        else:
+            mesh = make_production_mesh(multi_pod=multi_pod,
+                                        device_type="cpu")
+        fn, args = build_lowering(arch, shape_name, mesh,
+                                  cfg_override=cfg_override)
+        arg_bytes = local_bytes(args)
+        out, counter = count_step(fn, args)
+        out_bytes = local_bytes(out)
+        _, whole = count_step(*build_lowering(
+            arch, shape_name, mesh, cfg_override=cfg_override, place=False))
+    result = {
+        "arch": arch,
+        "shape": shape_name,
+        "mesh": "x".join(str(v) for v in shp),
+        "devices": n_dev,
+        "flops": counter.flops,
+        "flops_global": whole.flops,
+        "bytes_accessed": counter.bytes_accessed,
+        "collective_bytes": counter.collective_bytes(),
+        "memory": {
+            "argument_size_bytes": arg_bytes,
+            "output_size_bytes": out_bytes,
+            "temp_size_bytes": None,
+            "generated_code_size_bytes": None,
+        },
+        "compile_s": round(time.time() - t0, 2),
+    }
+    if extrapolate:
+        cfg = cfg_override or config_for_shape(arch, shape_name)
+        result["extrapolated"] = _full_depth_block(result, cfg)
+    if verbose:
+        print(f"[dryrun] {arch} x {shape_name} x mesh={result['mesh']}: "
+              f"OK ({result['compile_s']}s)")
+        print(f"  memory: {result['memory']}")
+        print(f"  flops={result['flops']:.3e} "
+              f"flops_global={result['flops_global']:.3e} "
+              f"bytes={result['bytes_accessed']:.3e}")
+        coll = {k: f"{v:.2e}" for k, v in result["collective_bytes"].items()}
+        print(f"  collectives: {coll}")
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="architecture id or 'all'")
+    ap.add_argument("--shape", default="train_4k",
+                    help="input shape name or 'all'")
+    ap.add_argument("--mesh", default="pod",
+                    choices=["pod", "multipod", "both"])
+    ap.add_argument("--all", action="store_true",
+                    help="every (arch x shape)")
+    ap.add_argument("--debug-mesh", action="store_true",
+                    help="small 2x4 mesh (tests)")
+    ap.add_argument("--out", default="",
+                    help="write JSON results to this path")
+    ap.add_argument("--cost-extrapolate", action="store_true",
+                    help="add the full-depth costs block")
+    args = ap.parse_args(argv)
+
+    archs = ASSIGNED_ARCHS if (args.all or args.arch == "all") \
+        else [args.arch]
+    shapes = ["train_4k", "prefill_32k", "decode_32k", "long_500k"] \
+        if (args.all or args.shape == "all") else [args.shape]
+    meshes = {"pod": [False], "multipod": [True],
+              "both": [False, True]}[args.mesh]
+
+    results, failures = [], []
+    for arch in archs:
+        for shape in shapes:
+            for mp in meshes:
+                try:
+                    results.append(run_one(
+                        arch, shape, multi_pod=mp,
+                        debug_mesh=args.debug_mesh,
+                        extrapolate=args.cost_extrapolate))
+                except Exception as e:  # noqa: BLE001
+                    failures.append({"arch": arch, "shape": shape,
+                                     "multi_pod": mp, "error": str(e)[:500]})
+                    print(f"[dryrun] FAIL {arch} x {shape} x mp={mp}: "
+                          f"{str(e)[:200]}")
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"results": results, "failures": failures}, f,
+                      indent=1)
+    print(f"\n[dryrun] {len(results)} ok, {len(failures)} failed")
+    raise SystemExit(1 if failures else 0)
+
+
+if __name__ == "__main__":
+    main()

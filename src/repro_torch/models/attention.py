@@ -20,7 +20,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.models.common import (ModelConfig, RopeTables, apply_rope,
-                                       dense_init, rms_norm)
+                                       dense_init, is_dtensor, merge_dims,
+                                       rms_norm, split_dim)
 
 NEG_INF = -1e30
 
@@ -40,8 +41,14 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   use_pallas: bool = False) -> torch.Tensor:
     """q: (B,S,H,D); k,v: (B,T,Hkv,D); mask: broadcastable (B,1,S,T) bool.
 
-    Grouped-query: H = G*Hkv query heads share each kv head.
+    Grouped-query: H = G*Hkv query heads share each kv head. DTensor
+    operands attend shard by shard (``distributed.parallel
+    .local_attention``).
     """
+    if is_dtensor(q) or is_dtensor(k):
+        from repro_torch.distributed import parallel
+        return parallel.local_attention(gqa_attention, q, k, v, mask,
+                                        causal=causal, use_pallas=use_pallas)
     if use_pallas and causal and mask is None and q.shape[1] == k.shape[1]:
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=True)
@@ -145,10 +152,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, num_kv: int):
-    B, S, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, num_kv, cfg.head_dim)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, num_kv, cfg.head_dim)
+    q = split_dim(x @ p["wq"].to(x.dtype), 2, (cfg.num_heads, cfg.head_dim))
+    k = split_dim(x @ p["wk"].to(x.dtype), 2, (num_kv, cfg.head_dim))
+    v = split_dim(x @ p["wv"].to(x.dtype), 2, (num_kv, cfg.head_dim))
     if cfg.use_qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -245,7 +251,7 @@ def attention_forward(p, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = gqa_attention(q, k, v, None, causal=True,
                             use_pallas=cfg.use_pallas)
-    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    out = merge_dims(out, 2)
     y = out @ p["wo"].to(out.dtype)
     cache = _cache_from_prefill(cfg, k, v, window, cache_len)
     return y, cache
@@ -285,9 +291,14 @@ def _write_cache(cfg: ModelConfig, cache_arr: torch.Tensor,
     """Write each row's new token into its slot, in place. ``kv_update``
     "onehot" and "scatter" give equal values in the JAX package (the one-hot
     blend of a zero-initialised cache is exact), so both are this one slot
-    write here. cache (B,T,...), new (B,1,...)."""
+    write here. cache (B,T,...), new (B,1,...). A placed cache (a DTensor)
+    is written shard by shard (``distributed.parallel.write_slots``)."""
     if cfg.kv_update not in ("onehot", "scatter"):
         raise ValueError(f"unknown kv_update {cfg.kv_update!r}")
+    if is_dtensor(cache_arr):
+        from repro_torch.distributed import parallel
+        return parallel.write_slots(cache_arr, slots.slot,
+                                    new_vals[:, 0].to(cache_arr.dtype))
     cache_arr[slots.rows, slots.slot] = new_vals[:, 0].to(cache_arr.dtype)
     return cache_arr
 
@@ -328,10 +339,8 @@ def cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
     (``encoder_kv``). Only q is projected, with no qk-norm; every query
     attends to every frame through the plain ``gqa_attention``, as in the
     JAX package."""
-    B, S, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    out = gqa_attention(q, enc_k, enc_v, None)
-    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    q = split_dim(x @ p["wq"].to(x.dtype), 2, (cfg.num_heads, cfg.head_dim))
+    out = merge_dims(gqa_attention(q, enc_k, enc_v, None), 2)
     return out @ p["wo"].to(out.dtype)
 
 
@@ -390,7 +399,7 @@ def _mla_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope: RopeTables):
     B, S, _ = x.shape
     H = cfg.num_heads
     qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, qk_dim)
+    q = split_dim(x @ p["wq"].to(x.dtype), 2, (H, qk_dim))
     q_nope, q_rope = torch.split(
         q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, rope)
@@ -404,11 +413,10 @@ def _mla_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope: RopeTables):
 
 def _mla_up(p, cfg: ModelConfig, c_kv: torch.Tensor):
     """K (nope part) and V of every latent: (B,T,H,nope), (B,T,H,v)."""
-    B, T = c_kv.shape[:2]
     H = cfg.num_heads
-    k_nope = (c_kv @ p["w_uk"].to(c_kv.dtype)).reshape(
-        B, T, H, cfg.qk_nope_head_dim)
-    v = (c_kv @ p["w_uv"].to(c_kv.dtype)).reshape(B, T, H, cfg.v_head_dim)
+    k_nope = split_dim(c_kv @ p["w_uk"].to(c_kv.dtype), 2,
+                       (H, cfg.qk_nope_head_dim))
+    v = split_dim(c_kv @ p["w_uv"].to(c_kv.dtype), 2, (H, cfg.v_head_dim))
     return k_nope, v
 
 
@@ -417,8 +425,6 @@ def _mla_attend(p, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope,
     """Attention over (possibly cached) latents, up-projecting K and V of
     every latent as the JAX package does. ``mask`` broadcasts to
     (B, H, S, T)."""
-    H = cfg.num_heads
-    B = c_kv.shape[0]
     k_nope, v = _mla_up(p, cfg, c_kv)
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     s_nope = torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
@@ -427,7 +433,7 @@ def _mla_attend(p, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope,
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, v.float())
-    out = out.reshape(B, -1, H * cfg.v_head_dim).to(q_nope.dtype)
+    out = merge_dims(out, 2).to(q_nope.dtype)
     return out @ p["wo"].to(out.dtype)
 
 
@@ -442,7 +448,7 @@ def _mla_attend_chunked(p, cfg: ModelConfig, q_nope, q_rope, c_kv,
     k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, T, H, cfg.qk_rope_head_dim)], dim=-1)
     out = flash_attention_chunked(q_cat, k_cat, v, causal=True)
-    out = out.reshape(B, -1, H * cfg.v_head_dim)
+    out = merge_dims(out, 2)
     return out @ p["wo"].to(out.dtype)
 
 

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (ModelConfig, dense_init, ffn_act,
-                                       is_gated, rms_norm)
+                                       is_dtensor, is_gated, rms_norm,
+                                       uniform_init)
 
 
 # ---------------------------------------------------------------------------
@@ -282,8 +283,7 @@ class RGLRUState(NamedTuple):
 def init_rglru_block(gen: torch.Generator, cfg: ModelConfig):
     dt = cfg.weight_dtype
     W = cfg.lru_width
-    lam = 0.9 + 0.099 * torch.rand((W,), generator=gen, device=gen.device,
-                                   dtype=torch.float32)
+    lam = 0.9 + 0.099 * uniform_init(gen, (W,))
     return {
         "w_x": dense_init(gen, (cfg.d_model, W), dt),
         "w_y": dense_init(gen, (cfg.d_model, W), dt),  # multiplicative branch
@@ -333,8 +333,13 @@ def rglru_block_forward(p, cfg: ModelConfig, x: torch.Tensor,
         gated_scan = kops.rglru_gated_scan
     else:
         from repro_torch.kernels.ref import rglru_gated_scan as gated_scan
-    out, h_last = gated_scan(xc32, pre_i, pre_r, p["lambda_param"], pre_y,
-                             h0)
+    if is_dtensor(xc32):
+        from repro_torch.distributed import parallel
+        out, h_last = parallel.local_scan(gated_scan, xc32, pre_i, pre_r,
+                                          p["lambda_param"], pre_y, h0)
+    else:
+        out, h_last = gated_scan(xc32, pre_i, pre_r, p["lambda_param"],
+                                 pre_y, h0)
     y = out @ p["w_out"].to(x.dtype)
     if state is None:
         return y, RGLRUState(h=h_last, conv=new_tail)

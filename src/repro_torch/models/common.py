@@ -13,6 +13,7 @@ applied as ``x @ W`` and (B, S, H, D) attention tensors.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
@@ -225,15 +226,41 @@ def tree_clone(tree):
     return tree_map(torch.Tensor.clone, tree)
 
 
+class ShapeOnly:
+    """A generator's stand-in for a model's ``init``: given it, ``init``
+    builds the same tree, leaf for leaf (shapes, dtypes, the widened
+    ``GATES_FP32`` weights), of meta tensors (no memory) and draws
+    nothing."""
+    device = torch.device("meta")
+
+
+def init_shapes(model):
+    """``model.init`` with nothing drawn, the counterpart of
+    ``jax.eval_shape(model.init, key)``: its tree of meta tensors."""
+    return model.init(ShapeOnly())
+
+
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated-normal fan-in init (LeCun-ish), matching llama-family.
-    Drawn in fp32 on the generator's device, then cast."""
+    Drawn in fp32 on the generator's device, then cast. A ``ShapeOnly``
+    generator gives the empty tensor."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * std).to(dtype)
+
+
+def uniform_init(gen: torch.Generator, shape) -> torch.Tensor:
+    """fp32 values drawn uniformly from [0, 1) on the generator's device,
+    or the empty tensor from a ``ShapeOnly`` generator."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return torch.rand(shape, generator=gen, device=gen.device,
+                      dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +325,45 @@ def is_gated(kind: str) -> bool:
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. A DTensor table is looked up shard by shard
+    (``distributed.parallel.embedding``)."""
+    if is_dtensor(table):
+        from repro_torch.distributed import parallel
+        return parallel.embedding(table, tokens)
+    return table[tokens]
+
+
+def stack_layers(tensors) -> torch.Tensor:
+    """``torch.stack(tensors)``: each layer's tensor on a new leading axis.
+    DTensors (one placement) are stacked shard by shard
+    (``distributed.parallel.stack_layers``)."""
+    if is_dtensor(tensors[0]):
+        from repro_torch.distributed import parallel
+        return parallel.stack_layers(list(tensors))
+    return torch.stack(tensors)
+
+
+def split_dim(t: torch.Tensor, dim: int, sizes) -> torch.Tensor:
+    """``t`` with dim ``dim`` viewed as ``sizes`` (their product is its
+    length). A DTensor's split of that dim is first brought to one that
+    divides ``sizes[0]`` (``distributed.parallel.divide_dim``)."""
+    if is_dtensor(t):
+        from repro_torch.distributed import parallel
+        t = parallel.divide_dim(t, dim, sizes[0])
+    return t.reshape(t.shape[:dim] + tuple(sizes) + t.shape[dim + 1:])
+
+
+def merge_dims(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` with dims ``dim`` and ``dim + 1`` viewed as one. On a DTensor
+    the gradient is brought back to a split that divides the first
+    (``distributed.parallel.merge_dims``)."""
+    if is_dtensor(t):
+        from repro_torch.distributed import parallel
+        return parallel.merge_dims(t, dim)
+    return t.reshape(t.shape[:dim] + (-1,) + t.shape[dim + 2:])
+
 
 def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
@@ -376,11 +442,29 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token loss. logits (B,S,V) of any float dtype, labels (B,S)
     int: the logsumexp minus the label's logit in fp32 (in fp64 for fp64
     logits), averaged over the tokens, or over those ``mask`` weights (at
-    least 1)."""
+    least 1). Logits that are a DTensor split over the vocab take the
+    vocab-parallel form (``distributed.parallel.vocab_parallel_nll``),
+    which gathers no logits."""
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    if is_dtensor(logits):
+        from repro_torch.distributed import parallel
+        logits = parallel.reduce_onto_vocab(logits)
+        if parallel.vocab_split(logits):
+            return _mean_nll(parallel.vocab_parallel_nll(logits, labels),
+                             mask)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    return _mean_nll(lse - ll, mask)
+
+
+def is_dtensor(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a DTensor, without importing DTensor where nothing
+    has made one."""
+    tensor_mod = sys.modules.get("torch.distributed.tensor")
+    return tensor_mod is not None and isinstance(t, tensor_mod.DTensor)
+
+
+def _mean_nll(nll: torch.Tensor, mask: Optional[torch.Tensor]):
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)

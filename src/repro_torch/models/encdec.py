@@ -45,9 +45,10 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
-from repro_torch.models.common import (ModelConfig, dense_init, layer_norm,
-                                       remat, sinusoidal_positions,
-                                       softmax_cross_entropy, sinusoids)
+from repro_torch.models.common import (ModelConfig, dense_init, embed_lookup,
+                                       layer_norm, merge_dims, remat,
+                                       sinusoidal_positions, sinusoids,
+                                       softmax_cross_entropy, stack_layers)
 
 
 def _ln(x, p):
@@ -124,7 +125,7 @@ class EncDecLM:
         a = _ln(x, lp["attn_norm"])
         q, k, v = attn._project_qkv(lp["attn"], self.self_cfg, a,
                                     cfg.num_kv_heads)
-        y = attn.gqa_attention(q, k, v, None).reshape(B, T, -1)
+        y = merge_dims(attn.gqa_attention(q, k, v, None), 2)
         x = x + y @ lp["attn"]["wo"].to(y.dtype)
         return x + blocks.ffn_forward(lp["ffn"], cfg, _ln(x, lp["ffn_norm"]))
 
@@ -133,7 +134,7 @@ class EncDecLM:
         (L, B, T_enc, Hkv, D) each."""
         ks, vs = zip(*(attn.encoder_kv(lp["cross_attn"], self.cfg, enc_out)
                        for lp in params["dec_layers"]))
-        return torch.stack(ks), torch.stack(vs)
+        return stack_layers(ks), stack_layers(vs)
 
     # ------------------------------------------------------------------
     # decoder
@@ -161,7 +162,7 @@ class EncDecLM:
 
     def _embed_tokens(self, params, tokens, start_pos: int = 0):
         cfg = self.cfg
-        x = params["embed"][tokens].to(cfg.activation_dtype)
+        x = embed_lookup(params["embed"], tokens).to(cfg.activation_dtype)
         S = tokens.shape[1]
         pos = sinusoidal_positions(start_pos + S, cfg.d_model,
                                    tokens.device)[start_pos:]
@@ -203,7 +204,7 @@ class EncDecLM:
         x, caches, cross_k, cross_v = self._run_decoder(params, tokens,
                                                         frames, max_len)
         logits = self._unembed(params, x[:, -1:])
-        stacked = attn.KVCache(*(torch.stack(t) for t in zip(*caches)))
+        stacked = attn.KVCache(*(stack_layers(t) for t in zip(*caches)))
         return logits, {"self": stacked, "cross_k": cross_k,
                         "cross_v": cross_v}
 
@@ -223,7 +224,7 @@ class EncDecLM:
         the new self-attention entries into ``cache`` in place and returns
         it. Each row's sinusoid is computed from ``pos`` on the device."""
         cfg = self.cfg
-        x = params["embed"][token].to(cfg.activation_dtype)
+        x = embed_lookup(params["embed"], token).to(cfg.activation_dtype)
         x = x + sinusoids(pos, cfg.d_model)[:, None, :].to(x.dtype)
         self_c = cache["self"]
         slots = attn.decode_slots(cfg, self_c.k.shape[2], pos)

@@ -32,7 +32,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
-                                       model_rope, remat,
+                                       embed_lookup, model_rope, remat,
                                        softmax_cross_entropy)
 
 
@@ -108,7 +108,8 @@ class HybridLM:
 
     # ------------------------------------------------------------------
     def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.cfg.activation_dtype)
+        return embed_lookup(params["embed"], tokens).to(
+            self.cfg.activation_dtype)
 
     def _unembed(self, params, x, pending):
         cfg = self.cfg

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
-                                       remat, softmax_cross_entropy)
+                                       embed_lookup, remat,
+                                       softmax_cross_entropy, stack_layers)
 
 
 class MambaLM:
@@ -53,7 +54,8 @@ class MambaLM:
         return params
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.cfg.activation_dtype)
+        return embed_lookup(params["embed"], tokens).to(
+            self.cfg.activation_dtype)
 
     def _unembed(self, params, x, pending):
         cfg = self.cfg
@@ -116,5 +118,5 @@ class MambaLM:
 
 
 def _stack(states) -> blocks.SSDState:
-    return blocks.SSDState(ssm=torch.stack([s.ssm for s in states]),
-                           conv=torch.stack([s.conv for s in states]))
+    return blocks.SSDState(ssm=stack_layers([s.ssm for s in states]),
+                           conv=stack_layers([s.conv for s in states]))

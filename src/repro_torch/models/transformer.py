@@ -45,8 +45,8 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
-                                       model_rope, remat,
-                                       softmax_cross_entropy)
+                                       embed_lookup, model_rope, remat,
+                                       softmax_cross_entropy, stack_layers)
 
 
 class DecoderOnlyLM:
@@ -135,7 +135,8 @@ class DecoderOnlyLM:
     # public api
     # ------------------------------------------------------------------
     def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.cfg.activation_dtype)
+        return embed_lookup(params["embed"], tokens).to(
+            self.cfg.activation_dtype)
 
     def _unembed(self, params, x, pending):
         cfg = self.cfg
@@ -187,7 +188,7 @@ class DecoderOnlyLM:
         x, pending, _, prefix, caches = self._run_stack(
             params, x, positions, collect_cache=True, cache_len=max_len)
         logits = self._unembed(params, x[:, -1:], pending[:, -1:])
-        stacked = type(caches[0])(*(torch.stack(t) for t in zip(*caches)))
+        stacked = type(caches[0])(*(stack_layers(t) for t in zip(*caches)))
         return logits, {"prefix": prefix, "scanned": stacked}
 
     def init_cache(self, batch: int, max_len: int, device="cuda"):

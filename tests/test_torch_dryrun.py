@@ -1,0 +1,431 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) and the DTensor path
+of its models, on the CPU.
+
+* The 5 (arch, shape) pairs of ``tests/test_dryrun.py`` on the 2x4 and
+  2x2x4 debug meshes through the CLI, and its HLO parser beside the
+  reference's.
+* FLOPs: (tinyllama-1.1b, train_4k) at full depth must read, in
+  ``flops_global``, the matmul count of its 22 layers and lm_head done by
+  hand: the forward, the remat recompute (each layer's forward but its
+  last product, whose output no backward needs: ``torch.utils.checkpoint``
+  stops recomputing once every saved tensor is back) and the backward
+  (twice the forward), exactly. Two products on the 2x4 mesh read a quarter
+  of their count, one rank's share, in ``flops``, and the whole count
+  unplaced, as ``flops_global`` is taken.
+* The vocab-parallel loss all-reduces (B, S) values and gathers no logits.
+* On real tensors: reduced dense and hybrid models placed on a 2x2 mesh
+  of four gloo processes give the plain models' loss, gradients and decode
+  logits at fp32 2e-5 (head-parallel and context-parallel caches); placed
+  on one
+  rank, its train step equals the plain step bit for bit, and the
+  dry-run's counts equal ``FlopCounterMode`` and the bytes placed.
+
+Every test sets up and destroys its own process group.
+"""
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro.launch.dryrun import collective_bytes as jax_collective_bytes
+from repro_torch.configs import get_config
+from repro_torch.data import synthetic_token_batches
+from repro_torch.distributed import (PSpec, batch_pspec, cache_pspecs,
+                                     logits_pspec, param_pspecs,
+                                     with_sharding)
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import build_model, tree_tensors
+from repro_torch.models.common import softmax_cross_entropy
+from repro_torch.training import init_adamw, make_train_step
+from repro_torch.training.train_loop import to_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FP32 = 2e-5
+
+
+@pytest.fixture(autouse=True)
+def no_group_left():
+    assert not dist.is_initialized()
+    yield
+    assert not dist.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_dryrun.py on the port
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh", ["pod", "multipod"])
+@pytest.mark.parametrize("arch,shape", [
+    ("tinyllama-1.1b", "train_4k"),        # dense train
+    ("deepseek-v2-lite-16b", "decode_32k"),  # MoE + MLA decode
+    ("mamba2-1.3b", "long_500k"),          # SSM long-context decode
+    ("recurrentgemma-9b", "decode_32k"),   # hybrid decode
+    ("whisper-medium", "prefill_32k"),     # enc-dec prefill
+])
+def test_debug_mesh_runs(arch, shape, mesh, tmp_path, capsys):
+    out = str(tmp_path / "dry.json")
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--arch", arch, "--shape", shape, "--debug-mesh",
+                     "--mesh", mesh, "--out", out])
+    assert done.value.code == 0, capsys.readouterr().out[-2000:]
+    assert "1 ok, 0 failed" in capsys.readouterr().out
+    with open(out) as f:
+        (r,) = json.load(f)["results"]
+    assert r["mesh"] == ("2x4" if mesh == "pod" else "2x2x4")
+    assert r["devices"] == (8 if mesh == "pod" else 16)
+    assert 0 < r["flops"] <= r["flops_global"]
+    assert r["memory"]["argument_size_bytes"] > 0
+    assert r["collective_bytes"]["total"] == sum(
+        v for k, v in r["collective_bytes"].items() if k != "total")
+
+
+def test_collective_bytes_parser():
+    hlo = """
+  %ar = f32[128,256] all-reduce(%x), replica_groups={}
+  %ag.1 = bf16[4,1024] all-gather(%y), dimensions={0}
+  %cp = f32[16] collective-permute(%z), source_target_pairs={{0,1}}
+  %dot = f32[128,256] dot(%a, %b)
+"""
+    out = dryrun.collective_bytes(hlo)
+    assert out["all-reduce"] == 128 * 256 * 4 * 2          # 2x convention
+    assert out["all-gather"] == 4 * 1024 * 2
+    assert out["collective-permute"] == 16 * 4
+    assert out["total"] == (out["all-reduce"] + out["all-gather"]
+                            + out["collective-permute"])
+    assert out == jax_collective_bytes(hlo)
+
+
+# ---------------------------------------------------------------------------
+# FLOPs
+# ---------------------------------------------------------------------------
+
+def test_full_depth_flops_match_the_matmul_count():
+    r = dryrun.run_one("tinyllama-1.1b", "train_4k", debug_mesh=True,
+                       verbose=False, extrapolate=True)
+    cfg = get_config("tinyllama-1.1b")
+    B, S = 256, 4096
+    N, d, L, V = B * S, cfg.d_model, cfg.num_layers, cfg.vocab_size
+    H, Hkv, hd, f = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                     cfg.d_ff)
+    layer = 2 * N * (d * H * hd + 2 * d * Hkv * hd + H * hd * d + 3 * d * f)
+    layer += 2 * (2 * B * H * S * S * hd)          # scores and probs @ v
+    last = 2 * N * f * d                           # w_out, not recomputed
+    head = 2 * N * d * V
+    want = L * (layer + (layer - last) + 2 * layer) + 3 * head
+    assert L == 22
+    assert r["flops_global"] == want
+    ext = r["extrapolated"]
+    assert ext["scan_length"] == 22
+    assert ext["flops"] == r["flops"]
+
+
+def test_flops_per_rank_and_global():
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    plain = [torch.empty(256, 3072, device="meta"),
+             torch.empty(3072, 8192, device="meta"),
+             torch.empty(8192, 3072, device="meta")]
+
+    def products(a, b, c):
+        return (a @ b) @ c
+
+    with dryrun.fake_process_group(8):
+        mesh = make_debug_mesh(device_type="cpu")
+        placed = [distribute_tensor(t, mesh, p) for t, p in zip(plain, (
+            [Replicate(), Replicate()], [Replicate(), Shard(1)],
+            [Replicate(), Shard(0)]))]
+        _, counter = dryrun.count_step(products, placed)
+    _, whole = dryrun.count_step(products, plain)
+    total = 2 * (2 * 256 * 3072 * 8192)
+    assert total == 25769803776                    # 2.577e10
+    assert whole.flops == total                    # what flops_global reads
+    assert counter.flops == total // 4             # split over model = 4
+
+
+# ---------------------------------------------------------------------------
+# the vocab-parallel loss
+# ---------------------------------------------------------------------------
+
+def test_vocab_parallel_loss_gathers_no_logits():
+    B, S, V = 8, 16, 512
+    with dryrun.fake_process_group(8):
+        mesh = make_debug_mesh(device_type="cpu")
+        logits = with_sharding(torch.empty(B, S, V, device="meta"),
+                               logits_pspec(mesh, B, V), mesh)
+        logits.requires_grad_(True)
+        labels = with_sharding(
+            torch.empty(B, S, dtype=torch.int32, device="meta"),
+            batch_pspec(mesh, B), mesh)
+
+        def loss_and_grad(lg, lab):
+            with implicit_replication():
+                loss = softmax_cross_entropy(lg, lab)
+                loss.backward()
+            return loss
+
+        _, counter = dryrun.count_step(loss_and_grad, (logits, labels))
+        assert logits.grad.placements == logits.placements
+    coll = counter.collective_bytes()
+    assert coll["all-gather"] == 0 and coll["all-to-all"] == 0
+    assert coll["reduce-scatter"] == 0
+    # three (B/2, S) fp32 all-reduces over model, then the mean's scalars
+    local_rows = (B // 2) * S * 4
+    assert 3 * 2 * local_rows <= coll["all-reduce"] < 4 * 2 * local_rows
+
+
+# ---------------------------------------------------------------------------
+# real tensors: four gloo ranks, and one rank
+# ---------------------------------------------------------------------------
+
+_WORKER = r'''
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[5])
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_config
+from repro_torch.distributed import (batch_pspec, cache_pspecs,
+                                     param_pspecs, with_sharding)
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import build_model, tree_tensors
+
+rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
+                          int(sys.argv[3]), sys.argv[4])
+sys.path.insert(0, sys.argv[6])
+from test_torch_dryrun import CONFIGS, config, first_kv, watched
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=world)
+mesh = make_debug_mesh(2, 2, device_type="cpu")
+results = {}
+for name in CONFIGS:
+    cfg = config(name)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16),
+                                         dtype=np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16),
+                                           dtype=np.int32))
+    placed = with_sharding(params, param_pspecs(params, mesh), mesh)
+    for p in tree_tensors(placed):
+        p.requires_grad_(True)
+    bspec = batch_pspec(mesh, 4)
+    with implicit_replication():
+        loss = model.loss(placed, with_sharding(toks, bspec, mesh),
+                          with_sharding(labels, bspec, mesh))
+        loss.backward()
+    res = {"loss": loss.full_tensor().item(),
+           "grads": [p.grad.full_tensor().tolist()
+                     for p in watched(placed)]}
+    cache = model.init_cache(4, 32, device="cpu")
+    cache = with_sharding(cache, cache_pspecs(cache, mesh, 4), mesh)
+    logits = []
+    with implicit_replication(), torch.no_grad():
+        for step in range(3):
+            tok = with_sharding(toks[:, step:step + 1], bspec, mesh)
+            pos = with_sharding(torch.full((4,), step, dtype=torch.int32),
+                                batch_pspec(mesh, 4, extra_dims=0), mesh)
+            lg, cache = model.decode_step(placed, tok, cache, pos)
+            logits.append(lg.full_tensor().tolist())
+    res["decode"] = logits
+    res["cache_placements"] = [[type(p).__name__, getattr(p, "dim", None)]
+                               for p in first_kv(cache).placements]
+    results[name] = res
+if rank == 0:
+    with open(out, "w") as f:
+        json.dump(results, f)
+dist.destroy_process_group()
+'''
+
+
+# reduced fp32 models placed on a 2x2 mesh: a dense one with a
+# head-parallel cache, one whose single kv head sends its cache's slots over
+# model, and the hybrid (the RG-LRU recurrence shard by shard)
+CONFIGS = ("dense", "dense_mqa", "hybrid")
+
+
+def config(name):
+    if name == "hybrid":
+        return get_config("recurrentgemma-9b").reduced()
+    return get_config("llama3-3b").reduced().replace(
+        num_kv_heads=1 if name == "dense_mqa" else 4)
+
+
+def watched(params):
+    """The leaves whose gradients the test holds: the embedding and the
+    head (vocab-parallel), a first-layer weight, and the hybrid's lambda
+    (replicated over data, its gradient summed over the batch's ranks)."""
+    first = (params["units"][0]["l0"]["mixer"]["lambda_param"]
+             if "units" in params else params["layers"][0]["attn"]["wq"])
+    return [params["embed"], params["lm_head"], first]
+
+
+def first_kv(cache):
+    return (cache["units"][0]["l2"].k if "units" in cache
+            else cache["scanned"].k)
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_sharded_model_matches_plain_on_four_gloo_ranks(tmp_path):
+    out, port = str(tmp_path / "ranks.json"), _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _WORKER, str(r), "4", str(port), out,
+         os.path.join(REPO, "src"), os.path.dirname(__file__)], env=env,
+        stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(4)]
+    errs = [p.communicate(timeout=120)[1] for p in procs]
+    assert all(p.returncode == 0 for p in procs), errs[0][-3000:]
+    with open(out) as f:
+        got = json.load(f)
+    assert sorted(got) == sorted(CONFIGS)
+    for name, res in got.items():
+        cfg = config(name)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        for p in tree_tensors(params):
+            p.requires_grad_(True)
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16),
+                                             dtype=np.int32))
+        labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16),
+                                               dtype=np.int32))
+        loss = model.loss(params, toks, labels)
+        loss.backward()
+        np.testing.assert_allclose(res["loss"], loss.item(), rtol=FP32,
+                                   atol=FP32)
+        for i, (got_grad, p) in enumerate(zip(res["grads"],
+                                              watched(params))):
+            np.testing.assert_allclose(got_grad, p.grad.numpy(), rtol=FP32,
+                                       atol=FP32, err_msg=f"{name} {i}")
+        cache = model.init_cache(4, 32, device="cpu")
+        with torch.no_grad():
+            for step in range(3):
+                lg, cache = model.decode_step(
+                    params, toks[:, step:step + 1], cache,
+                    torch.full((4,), step, dtype=torch.int32))
+                np.testing.assert_allclose(res["decode"][step], lg.numpy(),
+                                           rtol=FP32, atol=FP32)
+        # heads over model where they divide, else the slots (the hybrid's
+        # MQA ring too, a list element with no layer axis)
+        lead = 0 if name == "hybrid" else 1
+        model_dim = ["Shard", lead + (2 if name == "dense" else 1)]
+        assert res["cache_placements"] == [["Shard", lead], model_dim]
+
+
+def _one_rank_group():
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def test_placed_step_on_one_rank_equals_plain_step():
+    """The CPU rehearsal of ``chip_smoke.py`` phase 8 (b) and (c): a train
+    step on params and AdamW state placed on a 1x1 mesh equals the plain
+    step bit for bit, and the dry-run's counting of it reads the FLOPs
+    ``FlopCounterMode`` reads of the plain step, no collective bytes, and
+    the bytes of the arguments."""
+    cfg = get_config("llama3-3b").reduced()
+    model = build_model(cfg)
+    batch = to_device(next(synthetic_token_batches(cfg.vocab_size, 4, 16,
+                                                   seed=0)), "cpu")
+    step = make_train_step(model)
+
+    params = model.init(torch.Generator().manual_seed(0))
+    params, opt, m = step(params, init_adamw(params), batch)
+    plain = [t.detach().clone() for t in tree_tensors((params, opt))]
+    # counted apart: FlopCounterMode decomposes some ops it has no formula
+    # for, which may round otherwise
+    params = model.init(torch.Generator().manual_seed(0))
+    with FlopCounterMode(display=False) as fc:
+        step(params, init_adamw(params), batch)
+
+    _one_rank_group()
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        p_specs = param_pspecs(params, mesh)
+        args = (with_sharding(params, p_specs, mesh),
+                with_sharding(init_adamw(params),
+                              dryrun.param_pspecs_like_opt(
+                                  init_adamw(params), p_specs), mesh),
+                {k: with_sharding(v, batch_pspec(mesh, 4), mesh)
+                 for k, v in batch.items()})
+        arg_bytes = sum(t.numel() * t.element_size()
+                        for t in tree_tensors((params, init_adamw(params),
+                                               batch)))
+        assert dryrun.local_bytes(args) == arg_bytes
+
+        def placed_step(*a):
+            with implicit_replication():
+                return step(*a)
+
+        (pp, po, pm), counter = dryrun.count_step(placed_step, args)
+        placed = [t.to_local() if isinstance(t, DTensor) else t
+                  for t in tree_tensors((pp, po))]
+        assert torch.equal(pm["loss"].full_tensor(), m["loss"])
+        assert torch.equal(pm["grad_norm"].full_tensor(), m["grad_norm"])
+        assert len(placed) == len(plain)
+        assert all(torch.equal(a, b) for a, b in zip(placed, plain))
+    finally:
+        dist.destroy_process_group()
+    assert counter.flops == fc.get_total_flops()
+    assert counter.collective_bytes()["total"] == 0
+
+
+def test_placed_decode_on_one_rank_equals_plain():
+    """The CPU rehearsal of phase 8 (d): a prefill and 4 decode steps
+    through params and a cache placed on a 1x1 mesh give the plain path's
+    logits bit for bit."""
+    cfg = get_config("llama3-3b").reduced()
+    model = build_model(cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 12), dtype=np.int32))
+
+    def run(params, cache, place):
+        out = []
+        with torch.no_grad(), implicit_replication():
+            lg, pre = model.prefill(params, place(toks[:, :8],
+                                                  PSpec(None, None)),
+                                    max_len=32)
+            out.append(lg)
+            for dst, src in zip(tree_tensors(cache), tree_tensors(pre)):
+                dst.copy_(src)
+            for i in range(4):
+                pos = place(torch.full((2,), 8 + i, dtype=torch.int32),
+                            PSpec(None))
+                lg, cache = model.decode_step(
+                    params, place(toks[:, 8 + i:9 + i], PSpec(None, None)),
+                    cache, pos)
+                out.append(lg)
+        return out
+
+    plain = run(model.init(torch.Generator().manual_seed(0)),
+                model.init_cache(2, 32, device="cpu"), lambda t, s: t)
+    _one_rank_group()
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        cache = model.init_cache(2, 32, device="cpu")
+        placed = run(with_sharding(params, param_pspecs(params, mesh), mesh),
+                     with_sharding(cache, cache_pspecs(cache, mesh, 2), mesh),
+                     lambda t, s: with_sharding(t, s, mesh))
+        placed = [t.full_tensor() for t in placed]
+    finally:
+        dist.destroy_process_group()
+    assert len(placed) == 5
+    assert all(torch.equal(a, b) for a, b in zip(placed, plain))

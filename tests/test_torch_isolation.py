@@ -3,7 +3,9 @@ neither JAX nor the JAX package ``repro``.
 
 A subprocess blocks ``jax`` (``sys.modules["jax"] = None``) and rejects any
 import of ``repro`` / ``repro.*`` with an import hook, then imports every
-module of ``repro_torch`` and ``chip_smoke`` (without running it). A source
+module of ``repro_torch`` and ``chip_smoke`` (without running it), after
+which no process group may be set up (``torch.distributed.is_initialized``
+False): the dry-run sets one up only when it runs. A source
 scan backs it up for imports that run only inside functions.
 """
 import os
@@ -51,6 +53,17 @@ for fn in (training.adamw_update, training.make_train_step, training.train,
            training.save_checkpoint, training.load_checkpoint,
            synthetic_token_batches, train.main):
     assert callable(fn)
+# the distribution layer and the dry-run, imported above: no process group
+# is set up at import
+from repro_torch import distributed
+from repro_torch.launch import dryrun, mesh
+import torch.distributed as torch_dist
+for fn in (distributed.param_pspecs, distributed.cache_pspecs,
+           distributed.to_placements, distributed.with_sharding,
+           mesh.make_production_mesh, mesh.make_debug_mesh,
+           dryrun.build_lowering, dryrun.run_one, dryrun.main):
+    assert callable(fn)
+assert not torch_dist.is_initialized(), "a module set up a process group"
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
 assert not bad, bad
@@ -61,8 +74,8 @@ print(" ".join(names))
 # policies, those that hold the MoE blocks, MLA, the chunked reference and
 # the MoE/MLA decoder, the encoder-decoder, the Azure trace, phased tuner,
 # fleet layer and serve CLI, and the training path (optimizer, train loop,
-# checkpoints, the synthetic data and the train CLI), which the walk must
-# reach
+# checkpoints, the synthetic data and the train CLI), and the distribution
+# layer and the dry-run, which the walk must reach
 PATH_MODULES = {"repro_torch.kernels.ssd", "repro_torch.kernels.rglru",
                 "repro_torch.models.ssm", "repro_torch.models.hybrid",
                 "repro_torch.serving.graphs", "repro_torch.policies.fixed",
@@ -83,7 +96,11 @@ PATH_MODULES = {"repro_torch.kernels.ssd", "repro_torch.kernels.rglru",
                 "repro_torch.training.optimizer",
                 "repro_torch.training.train_loop",
                 "repro_torch.training.checkpoint", "repro_torch.data",
-                "repro_torch.data.pipeline", "repro_torch.launch.train"}
+                "repro_torch.data.pipeline", "repro_torch.launch.train",
+                "repro_torch.distributed",
+                "repro_torch.distributed.sharding",
+                "repro_torch.distributed.parallel",
+                "repro_torch.launch.mesh", "repro_torch.launch.dryrun"}
 
 
 def _sources():
