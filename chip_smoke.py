@@ -123,7 +123,16 @@ failure, or when there is no card or no checkout beside it. Phases:
    ``memory_allocated``'s rise within the allocator's rounding; its FLOPs
    ``FlopCounterMode``'s; no collective bytes); a 64-token prefill and 4
    decode steps through placed params and a placed 2048-slot cache must
-   give the plain path's logits bit for bit. No kernel may launch.
+   give the plain path's logits bit for bit. Last, the dry-run's
+   ``temp_size_bytes`` against the card: the placed train step (three
+   times; then at 8 x 256 with remat on and off), the placed prefill into
+   the 2048-slot cache and one placed decode step, each run once under
+   the dry-run's counter on the card: the rise of the allocator's
+   requested bytes' peak over the bytes requested just before must lie
+   between the dry-run's temp bytes and those plus the step's new
+   outputs, and equal the counter's own peak on the card, each within
+   TEMP_SLACK of the rise; remat must lower both the count and the rise.
+   No kernel may launch.
 
 The last lines are a JSON object with each kernel's numbers (a row per
 kernel and timed shape; its launches are those of the serve runs whose
@@ -252,6 +261,16 @@ DIST_PROMPT, DIST_SLOTS, DIST_BATCH, DIST_STEPS = 64, 2048, 8, 4
 # block cut from a large segment a remainder under 1 MiB (it splits off
 # no less): allocated may exceed requested by under 1 MiB a leaf
 ALLOC_SLACK = 1 << 20
+# the dry-run's temp_size_bytes against the allocator's requested bytes'
+# peak rise over a step: allocations inside an op that no op returns (a
+# library's workspace, a sort's scratch) are not counted, and must fit in
+# this share of the rise; the placed train step is measured TEMP_RUNS
+# times with remat on, then at TRAIN_BATCH x TEMP_REMAT_SEQ with remat on
+# and off (at TRAIN_SEQ the AdamW update's temporaries set the peak either
+# way: remat lowers the peak only where the activations set it)
+TEMP_SLACK = 0.02
+TEMP_RUNS = 3
+TEMP_REMAT_SEQ = 256
 WHISPER_CHECKED = 3        # replays held to the eager step bit for bit
 WHISPER_FP32_LAYERS = 4    # the fp32 checks: 4 encoder + 4 decoder layers
 # its decoder's self-attention: 16 query heads over 16 kv heads of 64
@@ -2183,9 +2202,13 @@ def dist_phase(torch, dev):
     every updated leaf); (c) the dry-run's counts of that step (1x1, fake
     tensors) equal the card's: its argument bytes the memory the placed
     arguments took, its FLOPs ``FlopCounterMode``'s of the plain step and
-    ``StepCounter``'s of the placed one, no collective bytes; (d) a prefill
-    and DIST_STEPS decode steps through placed params and a placed cache
-    give the plain path's logits bit for bit. No kernel may launch."""
+    ``StepCounter``'s of the placed one, no collective bytes, and its
+    ``temp_size_bytes`` the allocator's requested bytes' rise over the
+    placed step (``hold_temp``; TEMP_RUNS runs, then remat on and off at
+    TEMP_REMAT_SEQ); (d) a prefill and DIST_STEPS decode steps through
+    placed params and a placed cache give the plain path's logits bit for
+    bit, and the dry-run's prefill and decode step hold their
+    ``temp_size_bytes`` to the card as (c) does. No kernel may launch."""
     import torch.distributed as dist
     from repro_torch.kernels import launch_counts
     from repro_torch.launch import dryrun
@@ -2208,7 +2231,7 @@ def dist_phase(torch, dev):
         mesh = make_debug_mesh(1, 1, device_type="cuda")
         say(f"  NCCL group of 1, mesh {mesh}")
         placed_train_step(torch, dev, mesh, counts)
-        placed_decode(torch, dev, mesh)
+        placed_decode(torch, dev, mesh, counts)
     finally:
         dist.destroy_process_group()
     if launch_counts() != before:
@@ -2219,28 +2242,108 @@ def dist_phase(torch, dev):
 
 def dist_counts(torch, dryrun):
     """The dry-run's counts of DIST_ARCH's TRAIN_BATCH x TRAIN_SEQ train
-    step on a 1x1 mesh over a fake group, on meta tensors."""
+    step on a 1x1 mesh over a fake group, on meta tensors, and its memory
+    counts (``dist_memory``) of that step, of the step at TRAIN_BATCH x
+    TEMP_REMAT_SEQ with remat on and off, of the prefill of DIST_BATCH x
+    DIST_PROMPT into DIST_SLOTS slots and of a decode step against
+    them."""
     from repro_torch.configs.shapes import InputShape
     from repro_torch.distributed.sharding import local_bytes
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import tree_tensors
+    cfg = model_config(DIST_ARCH)
     shape = InputShape(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ,
                        TRAIN_BATCH, "train")
     with dryrun.fake_process_group(1):
         mesh = make_debug_mesh(1, 1, device_type="cpu")
         fn, args = dryrun.build_lowering(
-            DIST_ARCH, "train_4k", mesh, cfg_override=model_config(DIST_ARCH),
-            shape=shape)
+            DIST_ARCH, "train_4k", mesh, cfg_override=cfg, shape=shape)
         arg_bytes = local_bytes(args)
         _, counter = dryrun.count_step(fn, args)
         _, whole = dryrun.count_step(*dryrun.build_lowering(
-            DIST_ARCH, "train_4k", mesh, cfg_override=model_config(DIST_ARCH),
-            shape=shape, place=False))
+            DIST_ARCH, "train_4k", mesh, cfg_override=cfg, shape=shape,
+            place=False))
+        memory = {"train": dist_memory(counter)}
+        long = InputShape(f"train_{TRAIN_BATCH}x{TEMP_REMAT_SEQ}",
+                          TEMP_REMAT_SEQ, TRAIN_BATCH, "train")
+        for name, cfg_i, shp, kw in (
+                ("remat on", cfg, long, {}),
+                ("remat off", cfg.replace(remat=False), long, {}),
+                ("prefill", cfg, dist_shape("prefill"),
+                 {"max_len": DIST_SLOTS}),
+                ("decode", cfg, dist_shape("decode"), {})):
+            _, c = dryrun.count_step(*dryrun.build_lowering(
+                DIST_ARCH, shp.name, mesh, cfg_override=cfg_i, shape=shp,
+                **kw))
+            memory[name] = dist_memory(c)
     return {"argument_size_bytes": arg_bytes, "flops": counter.flops,
             "flops_global": whole.flops,
             "collective_bytes": counter.collective_bytes()["total"],
-            "temp_size_bytes": None,
+            "memory": memory,
             "leaves": len(list(tree_tensors(args)))}
+
+
+def dist_memory(counter):
+    """A settled ``StepCounter``'s memory counts."""
+    return {"temp": counter.temp_bytes, "new_outputs":
+            counter.new_output_bytes, "peak": counter.peak_bytes}
+
+
+def dist_shape(kind):
+    """(d)'s shapes: the prefill of DIST_BATCH x DIST_PROMPT tokens, and a
+    decode step against DIST_SLOTS slots."""
+    from repro_torch.configs.shapes import InputShape
+    if kind == "prefill":
+        return InputShape(f"prefill_{DIST_BATCH}x{DIST_PROMPT}", DIST_PROMPT,
+                          DIST_BATCH, "prefill")
+    return InputShape(f"decode_{DIST_BATCH}x{DIST_SLOTS}", DIST_SLOTS,
+                      DIST_BATCH, "decode")
+
+
+def card_memory(torch, dryrun, fn, args):
+    """``fn(*args)`` run once on the card under the dry-run's counter:
+    (its output, the settled counter, the rise of the allocator's
+    requested bytes' peak over the bytes requested just before, and the
+    same of its allocated bytes, which round each block up). Garbage is
+    collected first, so none of it is freed inside the step."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = torch.cuda.memory_stats()
+    before = {k: stats[f"{k}_bytes.all.current"]
+              for k in ("requested", "allocated")}
+    out, counter = dryrun.count_step(fn, args)
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()
+    rise = {k: stats[f"{k}_bytes.all.peak"] - v for k, v in before.items()}
+    return out, counter, rise
+
+
+def hold_temp(part, name, dry, counter, reading):
+    """Fail unless the card's requested-bytes rise (``card_memory``) lies
+    between the dry-run's temp bytes and those plus its new outputs, and
+    equals the counter's peak on the card, each within TEMP_SLACK of the
+    rise. Returns the rise."""
+    rise = reading["requested"]
+    slack = TEMP_SLACK * rise
+    say(f"  ({part}) {name}: requested bytes' peak rose {rise} B "
+        f"(allocated bytes' {reading['allocated']} B); dry-run "
+        f"temp_size_bytes {dry['temp']} B, new outputs "
+        f"{dry['new_outputs']} B (bounds {dry['temp'] - slack:.0f} .. "
+        f"{dry['temp'] + dry['new_outputs'] + slack:.0f}); the counter on "
+        f"the card: peak {counter.peak_bytes} B, temp {counter.temp_bytes} "
+        f"B, new outputs {counter.new_output_bytes} B; card: {card_line()}")
+    if not dry["temp"] - slack <= rise <= (dry["temp"] + dry["new_outputs"]
+                                           + slack):
+        fail(f"{name}: the requested bytes' rise {rise} B lies outside the "
+             f"dry-run's temp_size_bytes {dry['temp']} B (+ new outputs "
+             f"{dry['new_outputs']} B) by more than {TEMP_SLACK:.0%}")
+    if abs(counter.peak_bytes - rise) > slack:
+        fail(f"{name}: the counter's peak on the card {counter.peak_bytes} "
+             f"B is not the requested bytes' rise {rise} B within "
+             f"{TEMP_SLACK:.0%}")
+    return rise
 
 
 def dist_batch(torch, dev, cfg):
@@ -2252,6 +2355,7 @@ def dist_batch(torch, dev, cfg):
 
 def placed_train_step(torch, dev, mesh, counts):
     """Phase 8 (b) and (c); see ``dist_phase``."""
+    import numpy as np
     from torch.distributed.tensor.experimental import implicit_replication
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.distributed import (batch_pspec, param_pspecs,
@@ -2311,11 +2415,8 @@ def placed_train_step(torch, dev, mesh, counts):
         with implicit_replication():
             return step(*a)
 
-    torch.cuda.reset_peak_memory_stats()
-    (params, opt, pm), counter = dryrun.count_step(placed_step,
-                                                   (params, opt, pbatch))
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+    (params, opt, pm), counter, reading0 = card_memory(
+        torch, dryrun, placed_step, (params, opt, pbatch))
     from torch.distributed.tensor import DTensor
     got = [t.to_local() if isinstance(t, DTensor) else t
            for t in tree_tensors((params, opt, pm))]
@@ -2339,20 +2440,60 @@ def placed_train_step(torch, dev, mesh, counts):
         fail("the dry-run's FLOPs are not the card's")
     if counts["collective_bytes"] or counter.collective_bytes()["total"]:
         fail("collective bytes on a 1x1 mesh")
-    say(f"  (c) temp_size_bytes: dry-run {counts['temp_size_bytes']} (not "
-        f"counted); the placed step's peak {peak} B "
-        f"(torch.cuda.max_memory_allocated, the {rise} B of arguments "
-        f"included); card: {card_line()}")
-    del params, opt, pm, pbatch, got, plain
+    del got, plain
+    # the step again, TEMP_RUNS times in all, then at TEMP_REMAT_SEQ with
+    # remat on and off
+    dry = counts["memory"]
+    rises = [hold_temp("c", f"train step, remat on, run 1 of {TEMP_RUNS}",
+                       dry["train"], counter, reading0)]
+    for i in range(1, TEMP_RUNS):
+        (params, opt, pm), counter, r = card_memory(
+            torch, dryrun, placed_step, (params, opt, pbatch))
+        rises.append(hold_temp(
+            "c", f"train step, remat on, run {i + 1} of {TEMP_RUNS}",
+            dry["train"], counter, r))
+    say(f"  (c) the requested bytes' peak rise over {TEMP_RUNS} runs: "
+        f"{rises} B, spread {max(rises) - min(rises)} B; card: "
+        f"{card_line()}")
+    del pbatch
+    long = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TEMP_REMAT_SEQ + 1),
+        dtype=np.int32)).to(dev)
+    pbatch = {k: with_sharding(v, batch_pspec(mesh, TRAIN_BATCH), mesh)
+              for k, v in (("tokens", long[:, :-1]), ("labels", long[:, 1:]))}
+    remat_rise = {}
+    for name, remat in (("remat on", True), ("remat off", False)):
+        step_r = make_train_step(build_model(cfg.replace(remat=remat)))
+
+        def placed_step_r(*a):
+            with implicit_replication():
+                return step_r(*a)
+
+        (params, opt, pm), counter, r = card_memory(
+            torch, dryrun, placed_step_r, (params, opt, pbatch))
+        remat_rise[name] = hold_temp(
+            "c", f"train step {TRAIN_BATCH} x {TEMP_REMAT_SEQ}, {name}",
+            dry[name], counter, r)
+    say(f"  (c) remat on against off at {TRAIN_BATCH} x {TEMP_REMAT_SEQ}: "
+        f"dry-run temp_size_bytes {dry['remat on']['temp']} < "
+        f"{dry['remat off']['temp']} B, the card's rise "
+        f"{remat_rise['remat on']} < {remat_rise['remat off']} B; card: "
+        f"{card_line()}")
+    if not (dry["remat on"]["temp"] < dry["remat off"]["temp"]
+            and remat_rise["remat on"] < remat_rise["remat off"]):
+        fail("remat did not lower the dry-run's temp_size_bytes and the "
+             "card's requested bytes' rise")
+    del params, opt, pm, pbatch
     torch.cuda.empty_cache()
 
 
-def placed_decode(torch, dev, mesh):
+def placed_decode(torch, dev, mesh, counts):
     """Phase 8 (d); see ``dist_phase``."""
     import numpy as np
     from torch.distributed.tensor.experimental import implicit_replication
-    from repro_torch.distributed import (PSpec, cache_pspecs, param_pspecs,
-                                         with_sharding)
+    from repro_torch.distributed import (PSpec, batch_pspec, cache_pspecs,
+                                         param_pspecs, with_sharding)
+    from repro_torch.launch import dryrun
     from repro_torch.models import build_model, tree_tensors
     cfg = model_config(DIST_ARCH)
     model = build_model(cfg)
@@ -2395,6 +2536,37 @@ def placed_decode(torch, dev, mesh):
     if len(same) != 1 + DIST_STEPS or not all(same):
         fail("placed prefill or decode logits differ from the plain path's")
     del params, cache, placed, plain
+    torch.cuda.empty_cache()
+
+    # the dry-run's prefill and decode step, on inputs placed as it places
+    # them
+    dry = counts["memory"]
+    fns = {kind: dryrun.build_lowering(
+        DIST_ARCH, kind, mesh, cfg_override=cfg, shape=dist_shape(kind),
+        max_len=DIST_SLOTS)[0] for kind in ("prefill", "decode")}
+    params = init()
+    params = with_sharding(params, param_pspecs(params, mesh), mesh)
+    tokens = with_sharding(toks[:, :S], batch_pspec(mesh, B, extra_dims=1),
+                           mesh)
+    (_, pre), counter, reading = card_memory(
+        torch, dryrun, fns["prefill"], (params, {"tokens": tokens}))
+    hold_temp("d", f"prefill of {B} x {S} into {DIST_SLOTS} slots",
+              dry["prefill"], counter, reading)
+    cache = model.init_cache(B, DIST_SLOTS, device=dev)
+    cache = with_sharding(cache, cache_pspecs(cache, mesh, B), mesh)
+    with torch.no_grad():
+        for dst, src in zip(tree_tensors(cache), tree_tensors(pre)):
+            dst.copy_(src)
+    del pre
+    token = with_sharding(toks[:, S:S + 1], batch_pspec(mesh, B,
+                                                        extra_dims=1), mesh)
+    pos = with_sharding(torch.full((B,), S, dtype=torch.int32, device=dev),
+                        batch_pspec(mesh, B, extra_dims=0), mesh)
+    _, counter, reading = card_memory(torch, dryrun, fns["decode"],
+                                      (params, token, cache, pos))
+    hold_temp("d", f"decode step of {B} rows against {DIST_SLOTS} slots",
+              dry["decode"], counter, reading)
+    del params, cache
     torch.cuda.empty_cache()
 
 

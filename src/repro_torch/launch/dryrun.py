@@ -19,8 +19,19 @@ run is the proof. It reports, with the JAX package's keys:
   (``_c10d_functional.*``) that DTensor issues, an all-reduce counted twice,
   as the JAX package counts them in its HLO (``collective_bytes``);
 * ``memory``: one rank's bytes of the arguments and of the outputs, from
-  the local shapes; there is no compiled program, so ``temp_size_bytes``
-  and ``generated_code_size_bytes`` are None.
+  the local shapes, and ``temp_size_bytes``, the counterpart of XLA's
+  temp buffer: the peak, over the step, of the bytes in live storages
+  that the step allocated and that are not among its outputs at its end.
+  An op's output counts once, by its storage's ``nbytes()``, when its
+  storage first appears; it leaves the count when the storage is freed
+  (autograd's saved tensors at the backward that frees them, an
+  activation ``torch.utils.checkpoint`` dropped at once and counted again
+  when recomputed). Views and in-place ops allocate nothing: arguments,
+  and what the step writes into them in place (AdamW's moments, a decode
+  step's cache), are not counted; a functional collective's output is an
+  allocation. Allocations inside an op that no op returns (a library's
+  workspace, a sort's scratch) are not seen. There is no compiled
+  program, so ``generated_code_size_bytes`` is None.
 
 ``compile_s`` is the seconds to build and run the step on meta tensors.
 Every count is taken on the CPU and is not a speed. The port keeps its
@@ -37,12 +48,15 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import array
 import contextlib
 import json
 import os
 import re
 import time
+import weakref
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -54,7 +68,7 @@ from repro_torch.distributed.sharding import (PSpec, batch_pspec,
                                               param_pspecs, with_sharding)
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.models import build_model
-from repro_torch.models.common import init_shapes
+from repro_torch.models.common import init_shapes, tree_tensors
 from repro_torch.training.optimizer import AdamWConfig, init_adamw
 from repro_torch.training.train_loop import make_train_step
 
@@ -102,6 +116,10 @@ _FUNCOL_KIND = (("all_reduce", "all-reduce"), ("all_gather", "all-gather"),
                 ("broadcast", "collective-permute"))
 
 
+_FAKE = torch._C._TorchDispatchModeKey.FAKE
+_LIFT_FRESH = torch.ops.aten.lift_fresh.default
+
+
 def _nbytes(tree) -> int:
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
@@ -115,15 +133,28 @@ class StepCounter(TorchDispatchMode):
     DTensors is handed on to DTensor (``NotImplemented``), which runs the
     rank's local ops, and the collectives it needs, with this mode still
     active: those, and ops on plain tensors, are what ``flops``,
-    ``bytes_accessed`` and ``collectives`` count. An op on another tensor
-    subclass is not counted. FLOPs come from ``torch.utils.flop_counter``'s
-    formulas, ``FlopCounterMode``'s own."""
+    ``bytes_accessed``, ``collectives`` and the memory count. An op on
+    another tensor subclass is not counted. FLOPs come from
+    ``torch.utils.flop_counter``'s formulas, ``FlopCounterMode``'s own.
+
+    Memory: each op output whose storage is new (not live in the count
+    already, not one of the op's inputs') adds its ``nbytes()``, and a weak
+    reference takes it off when the storage is freed. ``after[i]`` is the
+    live total just after the i-th allocation; the total only falls
+    between allocations, so these are the peaks. ``settle(out)`` then
+    reads ``temp_bytes`` (the peak of the live bytes outside the step's
+    outputs), ``peak_bytes`` (outputs included) and ``new_output_bytes``
+    (the outputs' storages that the step allocated)."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.bytes_accessed = 0
         self.collectives = {kind: 0 for _, kind in _FUNCOL_KIND}
+        self.live_bytes = 0
+        self.after = array.array("q")
+        self._live = {}                 # storage cdata -> (i, bytes, ref)
+        self.temp_bytes = self.peak_bytes = self.new_output_bytes = None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -132,10 +163,12 @@ class StepCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented       # its local ops follow
         out = func(*args, **kwargs)
-        if types:
+        if types or torch._C._get_dispatch_mode(_FAKE) is not None:
             # the fake tensors DTensor's sharding propagation learns an
-            # output's shape from
+            # output's shape from, and the factory calls that make them
             return out
+        if not func.is_view:
+            self._allocated(func, args, kwargs, out)
         packet = func._overloadpacket
         if func.namespace in ("_c10d_functional",
                               "_c10d_functional_autograd"):
@@ -153,6 +186,52 @@ class StepCounter(TorchDispatchMode):
                                     + _nbytes(list(kwargs.values()))
                                     + _nbytes(out))
         return out
+
+    def _allocated(self, func, args, kwargs, out):
+        inputs = None
+        for t in tree_tensors(out):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._live:
+                continue
+            if inputs is None:
+                inputs = {x.untyped_storage()._cdata for x in tree_tensors(
+                    (args, kwargs))}
+            # an in-place op's result, or a view the schema does not mark
+            # (``_unsafe_view``); ``lift_fresh`` hands on the new tensor
+            # ``torch.tensor`` made
+            if key in inputs and func is not _LIFT_FRESH:
+                continue
+            n = st.nbytes()
+            self._live[key] = (len(self.after), n,
+                               weakref.ref(st, self._freer(key)))
+            self.live_bytes += n
+            self.after.append(self.live_bytes)
+
+    def _freer(self, key):
+        def freed(_):
+            _, n, _ = self._live.pop(key)
+            self.live_bytes -= n
+        return freed
+
+    def settle(self, out):
+        """Read the memory counts against the step's outputs ``out`` (a
+        tree of tensors or DTensors), and stop following frees."""
+        from torch.distributed.tensor import DTensor
+
+        after = np.array(self.after, dtype=np.int64)
+        sizes = np.zeros_like(after)
+        for t in tree_tensors(out):
+            local = t.to_local() if isinstance(t, DTensor) else t
+            key = local.untyped_storage()._cdata
+            if key in self._live:
+                i, n, _ = self._live[key]
+                sizes[i] = n
+        self._live = {}
+        outside = after - np.cumsum(sizes)
+        self.temp_bytes = int(max(outside.max(initial=0), 0))
+        self.peak_bytes = int(after.max(initial=0))
+        self.new_output_bytes = int(sizes.sum())
 
     def collective_bytes(self) -> dict:
         out = dict(self.collectives)
@@ -200,12 +279,13 @@ def param_pspecs_like_opt(opt_state, p_specs):
 # ---------------------------------------------------------------------------
 
 def build_lowering(arch: str, shape_name: str, mesh, *, cfg_override=None,
-                   shape=None, place: bool = True):
+                   shape=None, place: bool = True, max_len=None):
     """(fn, args): the step of ``shape_name``'s kind (or of ``shape``, an
     ``InputShape`` given in its place) and its arguments, meta tensors, each
     a DTensor on ``mesh`` (plain with ``place`` False). ``fn(*args)`` runs
     the step; plain tensors made inside it (positions, masks, rope tables)
-    are taken as replicated (``implicit_replication``)."""
+    are taken as replicated (``implicit_replication``). A prefill fills a
+    cache of ``max_len`` slots (default: the shape's sequence length)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     shape = shape or get_shape(shape_name)
@@ -236,12 +316,15 @@ def build_lowering(arch: str, shape_name: str, mesh, *, cfg_override=None,
         return train_fn, (params_in, opt_in, inputs_in)
 
     if shape.kind == "prefill":
+        max_len = max_len or S
+
         def prefill_fn(params, batch):
             with implicit_replication(), torch.no_grad():
                 if cfg.is_encoder_decoder:
                     return model.prefill(params, batch["tokens"],
-                                         batch["frames"], max_len=S)
-                return model.prefill(params, batch["tokens"], max_len=S)
+                                         batch["frames"], max_len=max_len)
+                return model.prefill(params, batch["tokens"],
+                                     max_len=max_len)
         return prefill_fn, (params_in, inputs_in)
 
     # decode
@@ -274,7 +357,7 @@ def _full_depth_block(result: dict, cfg) -> dict:
             "bytes_accessed": result["bytes_accessed"],
             "collective_bytes": dict(result["collective_bytes"]),
             "scan_length": _scan_length(cfg),
-            "u2_temp_bytes": None,
+            "u2_temp_bytes": result["memory"]["temp_size_bytes"],
             "u2_arg_bytes": result["memory"]["argument_size_bytes"],
             "note": "full depth: every layer counted (the port's layers "
                     "are lists), not extrapolated"}
@@ -309,9 +392,16 @@ def fake_process_group(world_size: int):
 
 def count_step(fn, args):
     """Run ``fn(*args)`` once under a ``StepCounter``: (its output, the
-    counter)."""
+    counter, settled against that output)."""
+    # the first call of a function under ``torch._disable_dynamo`` (a meta
+    # ``arange``, ``torch.utils.checkpoint``) imports ``torch._dynamo``,
+    # whose frames, left in a reference cycle, hold the caller's tensors
+    # until the collector runs: imported first, the count does not depend
+    # on whether the step is the process's first
+    import torch._dynamo  # noqa: F401
     with StepCounter() as counter:
         out = fn(*args)
+    counter.settle(out)
     return out, counter
 
 
@@ -348,7 +438,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "memory": {
             "argument_size_bytes": arg_bytes,
             "output_size_bytes": out_bytes,
-            "temp_size_bytes": None,
+            "temp_size_bytes": counter.temp_bytes,
             "generated_code_size_bytes": None,
         },
         "compile_s": round(time.time() - t0, 2),

@@ -3,7 +3,9 @@ are the reference's code: each module listed here, and each function
 listed, parses (``ast.dump``, docstrings stripped) to the same tree as its
 ``src/repro`` source with ``repro.`` rewritten to ``repro_torch.`` (and an
 import of ``repro`` itself to one of ``repro_torch``), as ``sed`` would
-rewrite it. Sources are read as text; nothing is imported.
+rewrite it. So does each of the reference's unit-test files of those
+modules listed here against its ``tests/test_torch_*.py`` copy. Sources
+are read as text; nothing is imported.
 """
 import ast
 import os
@@ -11,8 +13,8 @@ import re
 
 import pytest
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "src")
+TESTS = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(TESTS), "src")
 
 # every module of repro_torch that is its repro namesake with the prefix
 # rewritten
@@ -45,6 +47,10 @@ COPIED_FUNCTIONS = [
     ("launch.dryrun", "_scan_length"),
     ("distributed.sharding", "_param_rule"),
 ]
+
+# the reference's unit tests of the numpy stack, each copied as
+# tests/test_torch_<name>.py
+COPIED_TESTS = ["agft_core", "serving", "vectorized_hotpath", "property"]
 
 
 def _path(package, module):
@@ -92,4 +98,13 @@ def _function(tree, name):
 def test_function_is_the_reference_with_the_prefix_rewritten(module, name):
     ref = _function(_tree(_rewritten(_read("repro", module))), name)
     port = _function(_tree(_read("repro_torch", module)), name)
+    assert ast.dump(port) == ast.dump(ref)
+
+
+@pytest.mark.parametrize("name", COPIED_TESTS)
+def test_test_file_is_the_reference_with_the_prefix_rewritten(name):
+    with open(os.path.join(TESTS, f"test_{name}.py")) as f:
+        ref = _tree(_rewritten(f.read()))
+    with open(os.path.join(TESTS, f"test_torch_{name}.py")) as f:
+        port = _tree(f.read())
     assert ast.dump(port) == ast.dump(ref)

@@ -85,6 +85,8 @@ def test_debug_mesh_runs(arch, shape, mesh, tmp_path, capsys):
     assert r["devices"] == (8 if mesh == "pod" else 16)
     assert 0 < r["flops"] <= r["flops_global"]
     assert r["memory"]["argument_size_bytes"] > 0
+    temp = r["memory"]["temp_size_bytes"]
+    assert isinstance(temp, int) and temp > 0
     assert r["collective_bytes"]["total"] == sum(
         v for k, v in r["collective_bytes"].items() if k != "total")
 
@@ -127,6 +129,7 @@ def test_full_depth_flops_match_the_matmul_count():
     ext = r["extrapolated"]
     assert ext["scan_length"] == 22
     assert ext["flops"] == r["flops"]
+    assert ext["u2_temp_bytes"] == r["memory"]["temp_size_bytes"] > 0
 
 
 def test_flops_per_rank_and_global():
@@ -149,6 +152,92 @@ def test_flops_per_rank_and_global():
     assert total == 25769803776                    # 2.577e10
     assert whole.flops == total                    # what flops_global reads
     assert counter.flops == total // 4             # split over model = 4
+
+
+# ---------------------------------------------------------------------------
+# temp_size_bytes
+# ---------------------------------------------------------------------------
+
+def hand_counted(a, b):
+    """(64, 32) @ (32, 16) in fp32, then the activation and a reduction."""
+    h = a @ b                   # 4096 B
+    y = torch.relu(h)           # 4096 B, an output: 8192 live
+    y.mul_(2)                   # in place: nothing
+    a.add_(1)                   # into an argument: nothing
+    s = y.t().sum(dim=0)        # a view, then 256 B, an output: 8448 live
+    return s, y                 # h is freed on return
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_temp_bytes_match_the_hand_count(device):
+    """Exact: h is the one temporary (4096 B); the peak holds it and both
+    outputs (8448 B); the outputs are 4352 B."""
+    args = (torch.ones(64, 32, device=device),
+            torch.ones(32, 16, device=device))
+    (s, y), counter = dryrun.count_step(hand_counted, args)
+    assert (counter.temp_bytes, counter.peak_bytes,
+            counter.new_output_bytes) == (4096, 8448, 4352)
+    assert counter.live_bytes == 4352           # h's storage was freed
+    if device == "cpu":
+        assert torch.equal(s, torch.full((64,), 2.0 * 32 * 16))
+
+
+_FIRST_AND_NEXT = r'''
+import gc, sys
+gc.disable()
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.models import build_model
+from repro_torch.models.common import init_shapes
+from repro_torch.training import init_adamw, make_train_step
+model = build_model(get_config("llama3-3b").reduced())
+step = make_train_step(model)
+for _ in range(2):
+    params = init_shapes(model)
+    batch = {k: torch.empty(4, 16, dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    _, c = dryrun.count_step(step, (params, init_adamw(params), batch))
+    print(c.temp_bytes, c.peak_bytes, c.live_bytes)
+'''
+
+
+def test_first_count_in_a_process_equals_the_next():
+    """Exact, with the collector off (so that no cycle is freed by
+    chance): the first step a process counts (where torch imports
+    ``torch._dynamo`` on first use, and that import's frames, left in a
+    reference cycle, would hold the step's tensors) reads the next one's
+    counts, and nothing it allocated is live after it but its outputs."""
+    out = subprocess.run([sys.executable, "-c", _FIRST_AND_NEXT,
+                          os.path.join(REPO, "src")], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    first, nxt = [tuple(map(int, line.split()))
+                  for line in out.stdout.split("\n") if line]
+    assert first == nxt
+    assert first[2] == 12            # the loss, gradient norm and step
+
+
+def test_remat_lowers_temp_bytes_and_decode_stays_below_train():
+    """The reduced llama3-3b at 8 x 256 on a 1x1 mesh: remat on counts
+    fewer temp bytes than off (the activations set the peak at this
+    shape), and a decode step against 256 slots fewer than either."""
+    from repro_torch.configs.shapes import InputShape
+    cfg = get_config("llama3-3b").reduced()
+    assert cfg.remat
+    train = InputShape("train_8x256", 256, 8, "train")
+    decode = InputShape("decode_8x256", 256, 8, "decode")
+    temps = {}
+    with dryrun.fake_process_group(1):
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        for name, c, shape in (("on", cfg, train),
+                               ("off", cfg.replace(remat=False), train),
+                               ("decode", cfg, decode)):
+            _, counter = dryrun.count_step(*dryrun.build_lowering(
+                "llama3-3b", shape.name, mesh, cfg_override=c, shape=shape))
+            temps[name] = counter.temp_bytes
+    assert 0 < temps["decode"] < temps["on"] < temps["off"]
 
 
 # ---------------------------------------------------------------------------
@@ -337,16 +426,24 @@ def test_placed_step_on_one_rank_equals_plain_step():
     """The CPU rehearsal of ``chip_smoke.py`` phase 8 (b) and (c): a train
     step on params and AdamW state placed on a 1x1 mesh equals the plain
     step bit for bit, and the dry-run's counting of it reads the FLOPs
-    ``FlopCounterMode`` reads of the plain step, no collective bytes, and
-    the bytes of the arguments."""
+    ``FlopCounterMode`` reads of the plain step, no collective bytes, the
+    bytes of the arguments, and the temp and new-output bytes of the
+    plain step, on real tensors and on meta tensors, exactly."""
+    from repro_torch.models.common import init_shapes
     cfg = get_config("llama3-3b").reduced()
     model = build_model(cfg)
     batch = to_device(next(synthetic_token_batches(cfg.vocab_size, 4, 16,
                                                    seed=0)), "cpu")
     step = make_train_step(model)
 
+    meta = init_shapes(model)
+    _, on_meta = dryrun.count_step(step, (
+        meta, init_adamw(meta),
+        {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+         for k, v in batch.items()}))
     params = model.init(torch.Generator().manual_seed(0))
-    params, opt, m = step(params, init_adamw(params), batch)
+    (params, opt, m), on_cpu = dryrun.count_step(
+        step, (params, init_adamw(params), batch))
     plain = [t.detach().clone() for t in tree_tensors((params, opt))]
     # counted apart: FlopCounterMode decomposes some ops it has no formula
     # for, which may round otherwise
@@ -385,6 +482,12 @@ def test_placed_step_on_one_rank_equals_plain_step():
         dist.destroy_process_group()
     assert counter.flops == fc.get_total_flops()
     assert counter.collective_bytes()["total"] == 0
+    # metrics: the loss, the gradient norm and the step, 4 B each
+    assert on_cpu.new_output_bytes == 12
+    assert on_cpu.temp_bytes > 0
+    for c in (on_meta, counter):
+        assert (c.temp_bytes, c.peak_bytes, c.new_output_bytes) == (
+            on_cpu.temp_bytes, on_cpu.peak_bytes, on_cpu.new_output_bytes)
 
 
 def test_placed_decode_on_one_rank_equals_plain():
