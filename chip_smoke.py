@@ -113,7 +113,10 @@ failure, or when there is no card or no checkout beside it. Phases:
    to fp32 as phase 3 holds them; last, a loss through the kernels on
    params that require grad must raise the wrappers' ``RuntimeError``.
 8. Distribution: the port's dry-run of (tinyllama-1.1b, train_4k) on the
-   2x4 debug mesh over a fake process group, on this machine's torch;
+   2x4 debug mesh and on the 2x16x16 production mesh over a fake process
+   group, on this machine's torch; the latter's FLOPs a rank must be at
+   most 1.25 x the JAX package's (``tests/golden_dryrun_jax.json``), so
+   the placed step's split does not depend on the torch release;
    then, on a one-rank NCCL group and its 1x1 mesh, full-width llama3-3b
    in bf16 with no kernels: phase 7's train step on params and AdamW
    state placed by the port's sharding rules must equal the plain step
@@ -249,11 +252,15 @@ REMAT_BATCH, REMAT_SEQ = 8, 512
 SERVE_PROMPT, SERVE_MAX_LEN, SERVE_BATCH, SERVE_STEPS = 64, 2048, 8, 4
 TRAINED_RUN = "llama3-3b trained"  # phase 7's key in the kernels line
 # phase 8: the distribution layer on one card: the dry-run of this pair on
-# the 2x4 debug mesh, then full-width llama3-3b (bf16, no kernels) placed
-# on a 1x1 mesh of a one-rank NCCL group: phase 7's 8 x 128 train step
-# placed and plain, and a prefill of DIST_PROMPT tokens and DIST_STEPS
-# decode steps through a DIST_SLOTS-slot cache of batch DIST_BATCH
+# the 2x4 debug mesh and on the 2x16x16 production mesh (its FLOPs a rank
+# held to dryrun.JAX_FLOPS_BOUND x the JAX package's, read from
+# DIST_GOLDEN: the split must not depend on the torch release), then
+# full-width llama3-3b (bf16, no kernels) placed on a 1x1 mesh of a
+# one-rank NCCL group: phase 7's 8 x 128 train step placed and plain, and
+# a prefill of DIST_PROMPT tokens and DIST_STEPS decode steps through a
+# DIST_SLOTS-slot cache of batch DIST_BATCH
 DIST_DRYRUN = ("tinyllama-1.1b", "train_4k")
+DIST_GOLDEN = os.path.join(HERE, "tests", "golden_dryrun_jax.json")
 DIST_ARCH = "llama3-3b"
 DIST_PROMPT, DIST_SLOTS, DIST_BATCH, DIST_STEPS = 64, 2048, 8, 4
 # the caching allocator's requested bytes are the bytes asked for, to the
@@ -2195,7 +2202,10 @@ def train_phase(torch, dev):
 
 def dist_phase(torch, dev):
     """Phase 8: (a) the port's dry-run of DIST_DRYRUN on the 2x4 debug mesh
-    over a fake group, on this machine's torch; then on a one-rank NCCL
+    and on the 2x16x16 production mesh over a fake group, on this
+    machine's torch, the latter's FLOPs a rank within
+    ``dryrun.JAX_FLOPS_BOUND`` x the JAX package's (DIST_GOLDEN); then on
+    a one-rank NCCL
     group and its 1x1 mesh, full-width DIST_ARCH in bf16 with no kernels:
     (b) phase 7's train step on params and AdamW state placed by the
     port's rules equals the plain step bit for bit (loss, gradient norm,
@@ -2215,12 +2225,28 @@ def dist_phase(torch, dev):
     t0 = time.perf_counter()
     before = launch_counts()
     arch, shape = DIST_DRYRUN
-    r = dryrun.run_one(arch, shape, debug_mesh=True, verbose=False)
-    say(f"  (a) dry-run {arch} x {shape} x {r['mesh']} (fake group of "
-        f"{r['devices']}): flops {r['flops']:.4e} (global "
-        f"{r['flops_global']:.4e}), collective bytes "
-        f"{r['collective_bytes']['total']}, argument bytes "
-        f"{r['memory']['argument_size_bytes']}, {r['compile_s']} s")
+    with open(DIST_GOLDEN) as f:
+        golden = {(g["arch"], g["shape"], g["mesh"]): g
+                  for g in json.load(f)["results"]}
+    for kw in ({"debug_mesh": True}, {"multi_pod": True}):
+        r = dryrun.run_one(arch, shape, verbose=False, **kw)
+        say(f"  (a) dry-run {arch} x {shape} x {r['mesh']} (fake group of "
+            f"{r['devices']}): flops {r['flops']:.4e} (global "
+            f"{r['flops_global']:.4e}), collective bytes "
+            f"{r['collective_bytes']['total']}, argument bytes "
+            f"{r['memory']['argument_size_bytes']}, {r['compile_s']} s")
+        if "multi_pod" not in kw:
+            continue
+        ref = golden[(arch, shape, r["mesh"])]["extrapolated"]
+        ratio = r["flops"] / ref["flops"]
+        say(f"  (a) {r['mesh']}: flops a rank {r['flops']:.4e}, the JAX "
+            f"package's {ref['flops']:.4e}: {ratio:.4f} x (bound "
+            f"{dryrun.JAX_FLOPS_BOUND}); collective bytes "
+            f"{r['collective_bytes']['total']:.4e} against "
+            f"{ref['collective_bytes']['total']:.4e}")
+        if ratio > dryrun.JAX_FLOPS_BOUND:
+            fail(f"the placed {arch} x {shape} x {r['mesh']} step counts "
+                 f"{ratio:.3f} x the JAX package's FLOPs a rank")
     counts = dist_counts(torch, dryrun)
     if dist.is_initialized():
         fail("the dry-run left a process group set up")

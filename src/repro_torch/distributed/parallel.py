@@ -1,31 +1,60 @@
-"""What the models do differently on DTensors, where the plain form would
-gather a sharded operand whole or has no DTensor rule. The plain path never
-comes here: each function is reached only with DTensor operands.
+"""What the models do on DTensors: each placed op states the placement of
+its inputs and of its output, and runs on each rank's own shard, so that a
+placed step splits its work over the mesh as the JAX package's
+partitioned program does (Megatron TP x DP, experts over "model"), in every
+torch release alike. The plain path never comes here: each function is
+reached only with DTensor operands.
 
+Layout of a placed step: the residual stream (B, S, d) is split over the
+batch on the data axes and replicated over "model".
+
+* ``linear``: ``x @ w`` by where ``w`` is split. Column-parallel (``w``
+  split on its output dim: ``wq``/``wk``/``wv``, ``w_in``/``w_gate``,
+  ``w_x``/``w_y``, ``w_uk``/``w_uv``, the SSM in-projection, the RG-LRU
+  gates, ``lm_head``): the input replicated over "model", the output
+  split on its last dim. Row-parallel (``w`` split on its input dim:
+  ``wo``, ``w_out``): the input split on its last dim, the partial sums
+  reduced once by an all-reduce. No weight is gathered.
+* ``split_dim`` and ``merge_dims``: a split of heads viewed shard by
+  shard; ``divide_dim``: a split that does not divide the heads,
+  gathered.
+* ``local_attention``: attention on each rank's rows and query heads; each
+  rank takes the kv heads its query heads read. Query heads that the
+  model axis does not divide take the JAX partitioner's padded share,
+  ceil(H / m) a rank, their output a partial sum. Over a cache whose slots
+  are split (the context-parallel fallback of ``cache_pspecs``), each
+  rank attends its own slots and three small all-reduces combine the
+  partial (max, sum, product). Where the data axes leave the batch whole
+  (long_500k's one row), MLA's decode attends a part of the slots on each
+  of their ranks (``split_slots``).
+* ``local_conv``, ``moe_experts``, ``ssd_heads``, ``rms_norm``: the
+  depthwise conv on each rank's channels, the dense expert dispatch on
+  each rank's experts, the SSD on each rank's heads, an RMSNorm over a
+  split dim.
 * ``vocab_parallel_nll``: the cross entropy of logits sharded over the
-  vocab (``logits_pspec``), Megatron's vocab-parallel form. Each rank takes
-  its shard's max, sum of exponentials and, where the label falls in its
-  shard, the label's logit; three all-reduces of (B, S) over the vocab's
-  mesh dims combine them. The logits are never gathered, and the backward
-  pass, softmax minus the one-hot label, is local.
-* ``write_slots``: a decode step's in-place write of each row's new entry
-  into a placed cache, done on each rank's own shard.
-* ``embedding``: the vocab-parallel lookup of a placed table, and
-  ``stack_layers``: a prefill's per-layer caches stacked shard by shard.
-* ``local_attention``: attention run on each rank's rows and heads, and
+  vocab (``logits_pspec``), Megatron's vocab-parallel form: three
+  all-reduces of (B, S) over the vocab's mesh dims; the logits are never
+  gathered, and the backward pass is local.
+* ``embedding``: the vocab-parallel lookup, ``stack_layers``: a prefill's
+  per-layer caches stacked shard by shard, ``cache_layout``: a prefill's
+  cache placed as ``cache_pspecs`` places a decode cache, ``write_slots``:
+  a decode step's in-place cache write on each rank's own shard, and
   ``local_scan``: the RG-LRU recurrence on each rank's rows and lanes.
-* ``divide_dim`` and ``merge_dims``: views of a split of heads that
-  DTensor cannot take unevenly.
-* ``reduce_onto_vocab``: the head's unreduced product brought onto vocab
-  shards before the loss.
+
+Gradients: each function brings the gradient of each input to the input's
+own placement where it leaves (``_grad_to``): an activation's partial
+sums over "model" are all-reduced there, a weight's over the batch's mesh
+dims. A mesh dim of size 1 holds no partial sum and moves nothing.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed import _functional_collectives as funcol
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+MODEL_AXIS = "model"
 
 
 def _as_dtensor(t: torch.Tensor, mesh) -> DTensor:
@@ -37,10 +66,17 @@ def _as_dtensor(t: torch.Tensor, mesh) -> DTensor:
                               run_check=False)
 
 
+def _mesh_of(*ts):
+    return next(t for t in ts if isinstance(t, DTensor)).device_mesh
+
+
+def _is_shard(p, dim: Optional[int] = None) -> bool:
+    return isinstance(p, Shard) and (dim is None or p.dim == dim)
+
+
 def _shard_dims(placements, dim: int) -> List[int]:
     """The mesh dims whose placement shards tensor dim ``dim``."""
-    return [i for i, p in enumerate(placements)
-            if isinstance(p, Shard) and p.dim == dim]
+    return [i for i, p in enumerate(placements) if _is_shard(p, dim)]
 
 
 def _offset(mesh, mesh_dims: List[int], global_len: int) -> Tuple[int, int]:
@@ -55,26 +91,140 @@ def _offset(mesh, mesh_dims: List[int], global_len: int) -> Tuple[int, int]:
     return idx * size, size
 
 
-def vocab_split(logits: torch.Tensor) -> bool:
-    """Whether ``logits`` is a DTensor whose last (vocab) dim is split over
-    more than one rank."""
-    if not isinstance(logits, DTensor):
-        return False
-    mesh = logits.device_mesh
-    return any(mesh.size(d) > 1
-               for d in _shard_dims(logits.placements, logits.ndim - 1))
+def _model_dim(mesh) -> Optional[int]:
+    """The mesh dim named "model" where it splits (size > 1), else None."""
+    names = mesh.mesh_dim_names or ()
+    if MODEL_AXIS in names:
+        i = names.index(MODEL_AXIS)
+        if mesh.size(i) > 1:
+            return i
+    return None
 
+
+def _partial(mesh, i: int, op: str = "sum"):
+    """A partial sum (or max) over mesh dim ``i``; nothing is partial over
+    a mesh dim of size 1."""
+    return Partial(op) if mesh.size(i) > 1 else Replicate()
+
+
+def _grad_placements(placements) -> tuple:
+    return tuple(Replicate() if isinstance(p, Partial) else p
+                 for p in placements)
+
+
+def _reduced(t: DTensor) -> DTensor:
+    """``t`` with every partial mesh dim reduced (an all-reduce)."""
+    target = _grad_placements(t.placements)
+    if target == tuple(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, target)
+
+
+class _GradTo(torch.autograd.Function):
+    """The identity, whose backward pass brings the gradient to
+    ``placements``: partial sums reduced, a split kept."""
+
+    @staticmethod
+    def forward(ctx, t, placements):
+        ctx.placements = placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and tuple(grad.placements) != \
+                ctx.placements:
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad, None
+
+
+def _grad_to(t: DTensor) -> DTensor:
+    """``t``, its gradient brought to its own placement where it leaves."""
+    if not t.requires_grad:
+        return t
+    return _GradTo.apply(t, _grad_placements(t.placements))
+
+
+def _local_map(fn, out, ins, grads, mesh):
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=out, in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)
+
+
+def _rows(t: DTensor, last: int) -> list:
+    """Per mesh dim: ``t``'s split of a leading dim (the batch) there, else
+    Replicate."""
+    return [p if isinstance(p, Shard) and p.dim < last else Replicate()
+            for p in t.placements]
+
+
+# ---------------------------------------------------------------------------
+# products
+# ---------------------------------------------------------------------------
+
+def _roles(x: DTensor, w: DTensor):
+    """Per mesh dim, how ``x @ w`` splits there: (x's placement in, the
+    output's, x's gradient's, w's gradient's)."""
+    mesh, last = x.device_mesh, x.ndim - 1
+    roles = []
+    for i, wp in enumerate(w.placements):
+        if _is_shard(wp, w.ndim - 1):               # column
+            roles.append((Replicate(), Shard(last), _partial(mesh, i), wp))
+        elif _is_shard(wp):                         # row
+            roles.append((Shard(last), _partial(mesh, i), Shard(last), wp))
+        else:
+            xp = x.placements[i]
+            rows = xp if isinstance(xp, Shard) and xp.dim < last \
+                else Replicate()
+            roles.append((rows, rows, rows, _partial(mesh, i)
+                          if isinstance(rows, Shard) else Replicate()))
+    return roles
+
+
+def linear(x: torch.Tensor, *ws: torch.Tensor):
+    """``x @ w`` for each ``w`` (K, N) placed by the rules: over each mesh
+    dim that splits ``w``'s output dim, ``x`` replicated and the output
+    split on its last dim (column-parallel); over one that splits its
+    input dim, ``x`` split on its last dim and the partial sums
+    all-reduced (row-parallel); over one that replicates ``w``, ``x``'s
+    split of its rows kept (the batch) and the product local. The weights
+    stay as placed. Products of one input that split alike (``wq``,
+    ``wk``, ``wv``; ``w_in``, ``w_gate``) run in one region, so the
+    partial sums of the input's gradient are all-reduced once. One
+    product's output for one ``w``, else a tuple."""
+    mesh = _mesh_of(x, *ws)
+    x = _as_dtensor(x, mesh)
+    ws = [_as_dtensor(w, mesh) for w in ws]
+    roles = [_roles(x, w) for w in ws]
+    if any(r != roles[0] for r in roles[1:]):
+        out = tuple(linear(x, w) for w in ws)
+        return out if len(out) > 1 else out[0]
+    x_in, out, x_grad, _ = (list(t) for t in zip(*roles[0]))
+    w_grads = [[r[3] for r in role] for role in roles]
+
+    def products(a, *bs):
+        return tuple(a @ b for b in bs)
+    run = _local_map(products, tuple([out] * len(ws)),
+                     (x_in,) + tuple(tuple(w.placements) for w in ws),
+                     (x_grad,) + tuple(w_grads), mesh)
+    ys = tuple(_reduced(y) for y in run(_grad_to(x),
+                                        *(_grad_to(w) for w in ws)))
+    return ys if len(ys) > 1 else ys[0]
+
+
+# ---------------------------------------------------------------------------
+# views of a split of heads
+# ---------------------------------------------------------------------------
 
 def divide_dim(t: DTensor, dim: int, count: int) -> DTensor:
     """``t``, made whole over each mesh dim of the split of tensor dim
-    ``dim`` that would divide ``count`` unevenly (an all-gather; the JAX
-    package's partitioner pads instead), so that ``dim`` views as
-    (count, ...): DTensor cannot view an uneven split. Nothing moves where
-    ``count`` divides."""
+    ``dim`` that would divide ``count`` unevenly (an all-gather), so that
+    ``dim`` views as (count, ...). Nothing moves where ``count``
+    divides."""
     mesh, dim = t.device_mesh, dim % t.ndim
     target, split = list(t.placements), 1
     for i, p in enumerate(target):
-        if isinstance(p, Shard) and p.dim == dim:
+        if _is_shard(p, dim):
             if count % (split * mesh.size(i)):
                 target[i] = Replicate()
             else:
@@ -82,34 +232,6 @@ def divide_dim(t: DTensor, dim: int, count: int) -> DTensor:
     if tuple(target) == tuple(t.placements):
         return t
     return t.redistribute(mesh, target)
-
-
-class _MergeDims(torch.autograd.Function):
-    """Dims ``dim`` and ``dim + 1`` viewed as one, whose backward pass
-    brings the gradient to a split that divides the first of them
-    (``divide_dim``) before viewing it back: the gradient of a product with
-    a weight split over the merged dim arrives split as the weight is,
-    which may divide the first unevenly."""
-
-    @staticmethod
-    def forward(ctx, t, dim):
-        ctx.shape, ctx.dim = t.shape, dim
-        out = t.reshape(t.shape[:dim] + (-1,) + t.shape[dim + 2:])
-        # the strides a plain reshape gives: DTensor's view rule may keep
-        # another stride for a dim of size 1 (the (B, 1, H*D) attention
-        # output of a decode step: (H*D, D, 1) where the plain tensor has
-        # (H*D, H*D, 1)), and at::matmul reads it to decide whether to
-        # fold a (B, 1, K) operand into one GEMM or run a batched one,
-        # which rounds otherwise
-        return DTensor.from_local(out.to_local().contiguous(),
-                                  out.device_mesh, out.placements,
-                                  run_check=False, shape=out.shape,
-                                  stride=_contiguous_strides(out.shape))
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = divide_dim(grad, ctx.dim, ctx.shape[ctx.dim])
-        return grad.reshape(ctx.shape), None
 
 
 def _contiguous_strides(shape) -> Tuple[int, ...]:
@@ -120,21 +242,541 @@ def _contiguous_strides(shape) -> Tuple[int, ...]:
     return tuple(reversed(strides))
 
 
+def _view(t: DTensor, local_shape, shape, placements) -> DTensor:
+    """``t``'s local shard viewed as ``local_shape``, as a DTensor of
+    ``shape`` and ``placements`` with the strides a plain reshape gives
+    (DTensor's view rule may keep another stride for a dim of size 1, the
+    (B, 1, H*D) attention output of a decode step, and ``at::matmul``
+    reads it to decide whether to fold a (B, 1, K) operand into one GEMM
+    or run a batched one, which rounds otherwise)."""
+    local = t.to_local().reshape(local_shape)
+    return DTensor.from_local(local, t.device_mesh, placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
+
+
+def split_dim(t: DTensor, dim: int, sizes: Sequence[int]) -> DTensor:
+    """``t`` with dim ``dim`` viewed as ``sizes``: a split of it that
+    divides ``sizes[0]`` becomes a split of the first new dim, one that
+    does not is gathered first (``divide_dim``)."""
+    dim = dim % t.ndim
+    t = divide_dim(t, dim, sizes[0])
+    local = t.to_local()
+    rest = 1
+    for s in sizes[1:]:
+        rest *= s
+    local_shape = (local.shape[:dim] + (local.shape[dim] // rest,)
+                   + tuple(sizes[1:]) + local.shape[dim + 1:])
+    shape = t.shape[:dim] + tuple(sizes) + t.shape[dim + 1:]
+    extra = len(sizes) - 1
+    placements = [Shard(p.dim + extra) if _is_shard(p) and p.dim > dim
+                  else p for p in t.placements]
+    return _view(t, local_shape, shape, placements)
+
+
 def merge_dims(t: DTensor, dim: int) -> DTensor:
-    return _MergeDims.apply(t, dim)
+    """``t`` with dims ``dim`` and ``dim + 1`` viewed as one; a split of
+    ``dim`` becomes a split of the merged dim (``dim + 1`` is never
+    split)."""
+    dim = dim % t.ndim
+    local = t.to_local()
+    local_shape = (local.shape[:dim] + (-1,) + local.shape[dim + 2:])
+    shape = t.shape[:dim] + (t.shape[dim] * t.shape[dim + 1],) \
+        + t.shape[dim + 2:]
+    placements = [Shard(p.dim - 1) if _is_shard(p) and p.dim > dim
+                  else p for p in t.placements]
+    return _view(t, local_shape, shape, placements)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _head_share(H: int, m: int, c: int) -> Tuple[int, int]:
+    """The query heads [lo, hi) of rank ``c`` of ``m``: H / m where m
+    divides H, else the partitioner's padded share, ceil(H / m) each (the
+    last ranks hold fewer, or none)."""
+    n = -(-H // m)
+    lo = min(c * n, H)
+    return lo, min(lo + n, H)
+
+
+def _kv_for(k: torch.Tensor, H: int, heads: Sequence[int]) -> torch.Tensor:
+    """The kv heads (dim 2 of k, all ``Hkv`` of them) that query heads
+    ``heads`` (ascending) of H read, in an order in which query head j of
+    ``heads`` reads kv head j // (len(heads) / n) of the n taken: a run of
+    them where ``heads`` is a run that covers whole groups or lies in one,
+    else one a query head."""
+    G = H // k.shape[2]
+    lo, hi = heads[0], heads[-1] + 1
+    a, b = lo // G, (hi - 1) // G + 1
+    if list(heads) == list(range(lo, hi)) and (
+            b - a == 1 or (lo % G == 0 and hi % G == 0)):
+        return k[:, :, a:b]
+    idx = torch.tensor([h // G for h in heads], device=k.device)
+    return k.index_select(2, idx)
+
+
+def local_attention(fn, q, k, v, mask, *, partial=None, **kw):
+    """``fn(q, k, v, mask, **kw)`` (an attention over q (B, S, H, D) and k,
+    v (B, T, Hkv, D), mask None or broadcasting to (B, 1, S, T)) run on each
+    rank's own shard, as the JAX package's partitioner runs it: the batch
+    split as q's is, and over "model" each rank's query heads (H / m, or
+    the padded share where m does not divide H: ceil(H / m) heads on every
+    rank, padded with repeats of the last, the output a partial sum over
+    "model" with zeros in the other heads) against the kv heads
+    they read (split with them where m divides Hkv, else taken whole and
+    selected). Where the slots of k and v are split (a context-parallel
+    decode cache), ``partial(q, k, v, mask)`` gives each rank's (max, sum,
+    product) over its slots, combined as ``context_attention`` does."""
+    mesh = _mesh_of(q, k, v)
+    q, k, v = (_as_dtensor(t, mesh) for t in (q, k, v))
+    ctx = [i for i in range(mesh.ndim) if mesh.size(i) > 1
+           and (_is_shard(k.placements[i], 1)
+                or _is_shard(v.placements[i], 1))]
+    if ctx:
+        return context_attention(partial, q, k, v, mask, ctx)
+    H, Hkv = q.shape[2], k.shape[2]
+    batch = [Shard(0) if _is_shard(p, 0) else Replicate()
+             for p in q.placements]
+    hd = _model_dim(mesh)
+    if hd is not None and _is_shard(q.placements[hd], 0):
+        hd = None
+    m = mesh.size(hd) if hd is not None else 1
+    q_in, kv_in, out, q_grad, kv_grad = (list(batch) for _ in range(5))
+    even = H % m == 0
+    kv_split = even and Hkv % m == 0
+    if hd is not None:
+        q_in[hd] = q_grad[hd] = Shard(2) if even else Replicate()
+        kv_in[hd] = kv_grad[hd] = Shard(2) if kv_split else Replicate()
+        if not kv_split:
+            kv_grad[hd] = Partial()
+        if not even:
+            q_grad[hd] = Partial()
+        out[hd] = Shard(2) if even else Partial()
+    c = mesh.get_coordinate()[hd] if hd is not None else 0
+
+    def attend(q_, k_, v_, mask_):
+        if kv_split or m == 1:
+            return fn(q_, k_, v_, mask_, **kw)
+        n = q_.shape[2] if even else -(-H // m)
+        heads = range(c * n, (c + 1) * n)
+        if even:
+            return fn(q_, _kv_for(k_, H, heads), _kv_for(v_, H, heads),
+                      mask_, **kw)
+        # the partitioner's padding: every rank runs n heads, a padded one
+        # a repeat of head H - 1 whose output is dropped, so that every
+        # rank's gradient reaches q, k and v by the same collectives
+        lo, hi = _head_share(H, m, c)
+        heads = [min(h, H - 1) for h in heads]
+        q_own = q_[:, :, lo:hi] if hi - lo == n else q_.index_select(
+            2, torch.tensor(heads, device=q_.device))
+        full = torch.zeros(q_.shape[:3] + v_.shape[3:], dtype=q_.dtype,
+                           device=q_.device)
+        full[:, :, lo:hi] = fn(q_own, _kv_for(k_, H, heads),
+                               _kv_for(v_, H, heads), mask_,
+                               **kw)[:, :, :hi - lo]
+        return full
+
+    mask_in = None
+    if isinstance(mask, DTensor):
+        mask_in = [b if mask.shape[0] == q.shape[0] else Replicate()
+                   for b in batch]
+    # a list is one output's placements (a tuple would be one per output)
+    run = _local_map(attend, out, (q_in, kv_in, kv_in, mask_in),
+                     (q_grad, kv_grad, kv_grad, mask_in), mesh)
+    return run(_grad_to(q), _grad_to(k), _grad_to(v), mask)
+
+
+def local_heads(fn, split, whole, mask, *args, partial=None):
+    """``fn(*split, whole, mask, *args)`` (MLA's attention: ``split``
+    (B, ., H, .) tensors, q's and then k's and v's, ``whole`` (B, T, r)
+    shared by the heads, mask broadcasting to (B, H, S, T)) -> (B, S, H,
+    .), on each rank's rows and its heads over "model" (all of them where
+    the model axis does not divide H). Where ``whole``'s slots are split
+    (``split_slots``), ``partial`` (same arguments) gives each rank's
+    (max, sum, product) over its slots, (B, H, S) and (B, H, S, D), and
+    ``combine_parts`` joins them (no gradient: a decode step)."""
+    mesh = _mesh_of(*split)
+    split = [_as_dtensor(t, mesh) for t in split]
+    whole = _as_dtensor(whole, mesh)
+    batch = [Shard(0) if _is_shard(p, 0) else Replicate()
+             for p in split[0].placements]
+    ctx = [i for i in range(mesh.ndim)
+           if mesh.size(i) > 1 and _is_shard(whole.placements[i], 1)]
+    hd = _model_dim(mesh)
+    heads = list(batch)
+    if (hd is not None and not _is_shard(batch[hd])
+            and split[0].shape[2] % mesh.size(hd) == 0):
+        heads[hd] = Shard(2)
+
+    def own(t, base):
+        return [t.placements[i] if i in ctx else b
+                for i, b in enumerate(base)]
+    w_grad = [_partial(mesh, i) if i == hd and _is_shard(heads[i]) else b
+              for i, b in enumerate(batch)]
+    mask_in = None
+    if isinstance(mask, DTensor):
+        mask_in = own(mask, [b if mask.shape[0] == split[0].shape[0]
+                             else Replicate() for b in batch])
+    ins = (tuple(own(t, heads) for t in split)
+           + (own(whole, batch), mask_in) + (None,) * len(args))
+    if ctx:
+        parts = [Partial("max") if i in ctx else h
+                 for i, h in enumerate(heads)]
+        sums = [Partial() if i in ctx else h for i, h in enumerate(heads)]
+        mx, l, acc = _local_map(partial, (parts, sums, sums), ins, None,
+                                mesh)(*split, whole, mask, *args)
+        return combine_parts(mx, l, acc, _heads_last, heads)
+    grads = (heads,) * len(split) + (w_grad, mask_in) + (None,) * len(args)
+    run = _local_map(fn, heads, ins, grads, mesh)
+    return run(*(_grad_to(t) for t in split), _grad_to(whole), mask, *args)
+
+
+def _heads_last(out):
+    """(B, H, S, D) -> (B, S, H, D)."""
+    return out.permute(0, 2, 1, 3)
+
+
+def split_slots(q: DTensor, *pairs):
+    """Each (t, dim) of ``pairs`` (a cache (B, T, ...) and its slots' dim,
+    a mask and its last dim) split on ``dim`` over the mesh dims other
+    than "model" that leave the batch whole (q's rows replicated there:
+    long_500k's one row), where they divide the slots: each such rank then
+    attends its part of them, as the JAX package's partitioner spreads
+    that attention over the idle data axes. Each rank keeps its part;
+    nothing moves."""
+    mesh = q.device_mesh
+    hd = _model_dim(mesh)
+    ts = [(_as_dtensor(t, mesh), dim % t.ndim) for t, dim in pairs]
+    target, n = [list(t.placements) for t, _ in ts], 1
+    for i in range(mesh.ndim):
+        if (i != hd and mesh.size(i) > 1
+                and isinstance(q.placements[i], Replicate)
+                and all(isinstance(t.placements[i], Replicate)
+                        and t.shape[d] % (n * mesh.size(i)) == 0
+                        for t, d in ts)):
+            for tgt, (_, d) in zip(target, ts):
+                tgt[i] = Shard(d)
+            n *= mesh.size(i)
+    return [t if tuple(tgt) == tuple(t.placements)
+            else t.redistribute(mesh, tgt)
+            for (t, _), tgt in zip(ts, target)]
+
+
+def combine_parts(mx: DTensor, l: DTensor, acc: DTensor, finish,
+                  out) -> DTensor:
+    """The softmax attention over parts of the slots, from each part's
+    (max m, sum l, product acc), partial over the mesh dims that split the
+    slots: one all-reduce of the max and two of the sums rescaled to it,
+    then ``finish(acc / l)`` placed as ``out``."""
+    mesh = mx.device_mesh
+    top = _reduced(mx)
+    plain = list(_grad_placements(mx.placements))
+
+    def rescale(mx_, top_, l_, acc_):
+        s = torch.exp(mx_ - top_)
+        return l_ * s, acc_ * s[..., None]
+
+    l, acc = _local_map(rescale, (l.placements, acc.placements),
+                        (mx.placements, plain, l.placements,
+                         acc.placements), None, mesh)(mx, top, l, acc)
+    l, acc = _reduced(l), _reduced(acc)
+    return _local_map(lambda l_, acc_: finish(acc_ / l_[..., None]), out,
+                      (plain, plain), None, mesh)(l, acc)
+
+
+def context_attention(partial, q, k, v, mask, ctx: List[int]) -> DTensor:
+    """Attention over k, v whose slots (dim 1) are split over mesh dims
+    ``ctx``: q whole over them, each rank's ``partial(q, k, v, mask)`` over
+    its slots, (max m, sum l, product acc) of its scores, m and l
+    (B, Hkv, G, S) and acc (B, Hkv, G, S, D) fp32, joined by
+    ``combine_parts``. No gradient (a decode step)."""
+    mesh = q.device_mesh
+    batch = [Shard(0) if _is_shard(p, 0) else Replicate()
+             for p in q.placements]
+    kv_in = [Shard(1) if i in ctx else b for i, b in enumerate(batch)]
+    mask = _as_dtensor(mask, mesh)
+    mask_in = [Shard(mask.ndim - 1) if i in ctx else
+               (b if mask.shape[0] == q.shape[0] else Replicate())
+               for i, b in enumerate(batch)]
+    sums = [Partial() if i in ctx else b for i, b in enumerate(batch)]
+    parts = [Partial("max") if i in ctx else b for i, b in enumerate(batch)]
+    mx, l, acc = _local_map(partial, (parts, sums, sums),
+                            (batch, kv_in, kv_in, mask_in), None, mesh)(
+        q, k, v, mask)
+    def finish(out):
+        out = out.permute(0, 3, 1, 2, 4)        # (B, S, Hkv, G, D)
+        return out.reshape(out.shape[:2] + (-1, out.shape[-1])).to(q.dtype)
+    return combine_parts(mx, l, acc, finish, batch)
+
+
+# ---------------------------------------------------------------------------
+# the other blocks' shard-local parts
+# ---------------------------------------------------------------------------
+
+def local_conv(fn, x: DTensor, w: torch.Tensor,
+               tail: Optional[torch.Tensor]):
+    """``fn(x, w, tail)``, a depthwise causal conv (x (B, S, C), w (k, C),
+    tail (B, k-1, C) or None) -> (out, new tail), on each rank's rows and
+    channels: the channels split as ``w``'s are."""
+    mesh = _mesh_of(x, w)
+    x, w = _as_dtensor(x, mesh), _as_dtensor(w, mesh)
+    rows = _rows(x, x.ndim - 1)
+    lanes = [Shard(2) if _is_shard(p, 1) else r
+             for p, r in zip(w.placements, rows)]
+    w_grad = [p if _is_shard(p) else
+              (_partial(mesh, i) if _is_shard(rows[i]) else Replicate())
+              for i, p in enumerate(w.placements)]
+    ins = [lanes, tuple(w.placements), lanes if tail is not None else None]
+    grads = [lanes, w_grad, ins[2]]
+    args = [_grad_to(x), _grad_to(w), tail]
+    if tail is not None:
+        args[2] = _grad_to(_as_dtensor(tail, mesh))
+    return _local_map(fn, (lanes, lanes), tuple(ins), tuple(grads),
+                      mesh)(*args)
+
+
+def last_dim_split(x: DTensor) -> bool:
+    """Whether ``x``'s last dim is split over a mesh dim of size > 1."""
+    mesh = x.device_mesh
+    return any(mesh.size(i) > 1
+               for i in _shard_dims(x.placements, x.ndim - 1))
+
+
+def rms_norm(x: DTensor, weight: torch.Tensor, eps: float) -> DTensor:
+    """The RMSNorm (``kernels.ref.rmsnorm``) over the last dim of ``x``,
+    which is split: the shards' sums of squares all-reduced (B, S, 1), and
+    each shard normalised by it and its part of ``weight``."""
+    mesh = _mesh_of(x, weight)
+    x, weight = _as_dtensor(x, mesh), _as_dtensor(weight, mesh)
+    last = x.ndim - 1
+    rows = _rows(x, last)
+    split = [i for i, p in enumerate(x.placements)
+             if _is_shard(p, last) and mesh.size(i) > 1]
+    lanes = [Shard(last) if i in split else r for i, r in enumerate(rows)]
+    w_in = [Shard(0) if i in split else Replicate()
+            for i in range(mesh.ndim)]
+    w_grad = [Shard(0) if i in split else
+              (_partial(mesh, i) if _is_shard(r) else Replicate())
+              for i, r in enumerate(rows)]
+    n = x.shape[last]
+    ss = _local_map(
+        lambda a: torch.sum(torch.square(a.float()), dim=-1, keepdim=True),
+        [Partial() if i in split else r for i, r in enumerate(rows)],
+        (lanes,), (lanes,), mesh)(x)
+    ss = _reduced(ss)
+
+    def norm(a, s, w_):
+        return (a.float() * torch.rsqrt(s / n + eps)
+                * w_.float()).to(a.dtype)
+    # each shard's part of the sum's gradient: partial sums over the split
+    s_grad = [_partial(mesh, i) if i in split else r
+              for i, r in enumerate(rows)]
+    return _local_map(norm, lanes, (lanes, rows, w_in),
+                      (lanes, s_grad, w_grad), mesh)(x, ss, _grad_to(weight))
+
+
+def moe_experts(fn, x: DTensor, combine: DTensor, w_gate, w_in, w_out):
+    """``fn(x, combine, w_gate, w_in, w_out)`` (the dense dispatch's expert
+    products: x (B, S, d), combine (B, S, E), expert weights (E, ...)) ->
+    (B, S, d) fp32, on each rank's rows and experts (expert-parallel over
+    the mesh dims that split the experts), the partial sums all-reduced."""
+    mesh = _mesh_of(x, w_gate)
+    x, combine = _as_dtensor(x, mesh), _as_dtensor(combine, mesh)
+    ws = [_as_dtensor(w, mesh) for w in (w_gate, w_in, w_out)]
+    rows = _rows(x, x.ndim - 1)
+    experts = [i for i, p in enumerate(ws[0].placements) if _is_shard(p, 0)]
+    c_in = [Shard(2) if i in experts else r for i, r in enumerate(rows)]
+    x_grad = [_partial(mesh, i) if i in experts else r
+              for i, r in enumerate(rows)]
+    w_grad = [Shard(0) if i in experts else
+              (_partial(mesh, i) if _is_shard(r) else Replicate())
+              for i, r in enumerate(rows)]
+    out = [_partial(mesh, i) if i in experts else r
+           for i, r in enumerate(rows)]
+    w_in_pl = [Shard(0) if i in experts else Replicate()
+               for i in range(mesh.ndim)]
+    run = _local_map(fn, out, (rows, c_in, w_in_pl, w_in_pl, w_in_pl),
+                     (x_grad, c_in, w_grad, w_grad, w_grad), mesh)
+    return _reduced(run(_grad_to(x), _grad_to(combine),
+                        *(_grad_to(w) for w in ws)))
+
+
+def ssd_heads(fn, n_heads: int, z, xbc, dt, dt_bias, a_log, d_skip,
+              ssm=None):
+    """``fn(lo, hi, z, xbc, dt, dt_bias, a_log, d_skip, ssm)`` -> (y, final
+    state): the SSD over heads [lo, hi) of ``n_heads`` (y (B, S, (hi - lo)
+    * P), the state (B, hi - lo, P, N)), on each rank's rows and its
+    heads over "model" (all of them where the model axis does not divide
+    ``n_heads``). z, xbc and dt come whole over "model" and each rank takes
+    its heads' columns; ``ssm``, a decode step's state, is split over its
+    heads as ``cache_pspecs`` places it."""
+    mesh = _mesh_of(z, xbc)
+    z, xbc, dt = (_as_dtensor(t, mesh) for t in (z, xbc, dt))
+    small = [_as_dtensor(t, mesh) for t in (dt_bias, a_log, d_skip)]
+    rows = _rows(z, z.ndim - 1)
+    hd = _model_dim(mesh)
+    if hd is not None and (n_heads % mesh.size(hd)
+                           or _is_shard(z.placements[hd], 0)):
+        hd = None
+    if hd is None:
+        lo, hi = 0, n_heads
+    else:
+        lo, hi = _offset(mesh, [hd], n_heads)
+        hi += lo
+    lanes = [Shard(z.ndim - 1) if i == hd else r for i, r in enumerate(rows)]
+    state = [Shard(1) if i == hd else r for i, r in enumerate(rows)]
+    whole = [Replicate()] * mesh.ndim
+    grad_whole = [_partial(mesh, i) if i == hd else r
+                  for i, r in enumerate(rows)]
+    p_grad = [(_partial(mesh, i) if _is_shard(r) or i == hd
+               else Replicate()) for i, r in enumerate(rows)]
+
+    def run(z_, xbc_, dt_, b_, a_, d_, ssm_):
+        return fn(lo, hi, z_, xbc_, dt_, b_, a_, d_, ssm_)
+
+    ins = (rows, rows, rows, whole, whole, whole,
+           state if ssm is not None else None)
+    grads = (grad_whole, grad_whole, grad_whole, p_grad, p_grad, p_grad,
+             ins[-1])
+    ssm = _as_dtensor(ssm, mesh) if ssm is not None else None
+    # z, xbc and dt leave their partial sums to the reduce-scatters that
+    # made them whole (``gather_parts``, ``gather_model``)
+    return _local_map(run, (lanes, state), ins, grads, mesh)(
+        z, xbc, dt, *(_grad_to(t) for t in small), ssm)
+
+
+class _GatherParts(torch.autograd.Function):
+    """``gather_parts``: the all-gather and the cut in the forward pass; in
+    the backward pass each part's gradient goes into a whole-width buffer
+    as a partial sum (a partial sum as it is, a slice at the rank's
+    offset, a whole gradient on the first rank only), reduce-scattered
+    back onto ``t``'s split: one reduce-scatter, where a gradient a part
+    would take an all-reduce."""
+
+    @staticmethod
+    def forward(ctx, t, hd, sizes, split):
+        mesh, last = t.device_mesh, t.ndim - 1
+        c, m = mesh.get_coordinate()[hd], mesh.size(hd)
+        ctx.meta = (t, hd, sizes, split)
+        full = funcol.all_gather_tensor(t.to_local(), gather_dim=last,
+                                        group=(mesh, hd))
+        outs = []
+        for i, (part, n) in enumerate(zip(torch.split(full, sizes, last),
+                                          sizes)):
+            placements = list(t.placements)
+            placements[hd] = Shard(last) if i in split else Replicate()
+            if i in split:
+                part = part.narrow(last, c * (n // m), n // m)
+            shape = t.shape[:last] + (n,)
+            outs.append(DTensor.from_local(
+                part.contiguous(), mesh, placements, run_check=False,
+                shape=torch.Size(shape), stride=_contiguous_strides(shape)))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        t, hd, sizes, split = ctx.meta
+        mesh, last = t.device_mesh, t.ndim - 1
+        c, m = mesh.get_coordinate()[hd], mesh.size(hd)
+        rows = t.to_local().shape[:last]
+        parts = []
+        for g, n in zip(grads, sizes):
+            if g is None:
+                parts.append(t.to_local().new_zeros(rows + (n,)))
+                continue
+            target = list(t.placements)
+            target[hd] = g.placements[hd]
+            local = g.redistribute(mesh, target).to_local()
+            p = g.placements[hd]
+            if _is_shard(p):
+                whole = local.new_zeros(rows + (n,))
+                whole.narrow(last, c * (n // m), n // m).copy_(local)
+                local = whole
+            elif not isinstance(p, Partial) and c:
+                local = torch.zeros_like(local)
+            parts.append(local)
+        grad = funcol.reduce_scatter_tensor(torch.cat(parts, last), "sum",
+                                            scatter_dim=last,
+                                            group=(mesh, hd))
+        return (DTensor.from_local(grad, mesh, t.placements, run_check=False,
+                                   shape=t.shape, stride=t.stride()),
+                None, None, None)
+
+
+def gather_parts(t: DTensor, sizes: Sequence[int]):
+    """``torch.split(t, sizes, -1)`` of ``t`` split on its last dim over
+    "model" where that split does not follow the parts (Mamba-2's fused
+    in-projection, [z, xBC, dt]): ``t`` gathered whole (an all-gather),
+    each part whole over "model" but those "model" divides, which keep
+    each rank's slice (xBC, on the depthwise conv's channel split). The
+    gradient comes back by one reduce-scatter. Without a model split, the
+    plain split on each rank's rows."""
+    mesh = t.device_mesh
+    hd = _model_dim(mesh)
+    if hd is None or not _is_shard(t.placements[hd], t.ndim - 1):
+        return torch.split(t, list(sizes), dim=-1)
+    m = mesh.size(hd)
+    split = tuple(i for i, n in enumerate(sizes) if i == 1 and n % m == 0)
+    return _GatherParts.apply(t, hd, tuple(sizes), split)
+
+
+def gather_model(t: DTensor) -> DTensor:
+    """``t`` whole over "model" (an all-gather of a split there)."""
+    mesh = t.device_mesh
+    hd = _model_dim(mesh)
+    if hd is None or not _is_shard(t.placements[hd]):
+        return t
+    target = list(t.placements)
+    target[hd] = Replicate()
+    return t.redistribute(mesh, target)
+
+
+def cache_layout(t: DTensor, dim: int) -> DTensor:
+    """A prefill's cache tensor, (B, T, ...), placed over "model" as
+    ``cache_pspecs`` places a decode cache: kept where ``dim`` (its heads,
+    rank or lanes) is split there already; else, where it is whole, split
+    on ``dim`` where "model" divides it (or, for a KV cache's heads, on
+    its slots where it divides them: the context-parallel fallback). Each
+    rank keeps its part; nothing moves."""
+    mesh = t.device_mesh
+    hd = _model_dim(mesh)
+    if hd is None or not isinstance(t.placements[hd], Replicate):
+        return t
+    m = mesh.size(hd)
+    target = list(t.placements)
+    if t.shape[dim] % m == 0:
+        target[hd] = Shard(dim)
+    elif t.ndim == 4 and dim == 2 and t.shape[1] % m == 0:
+        target[hd] = Shard(1)
+    else:
+        return t
+    return t.redistribute(mesh, target)
+
+
+# ---------------------------------------------------------------------------
+# embedding, stacking, the loss, the cache write, the RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def vocab_split(logits: torch.Tensor) -> bool:
+    """Whether ``logits`` is a DTensor whose last (vocab) dim is split over
+    more than one rank."""
+    if not isinstance(logits, DTensor):
+        return False
+    mesh = logits.device_mesh
+    return any(mesh.size(d) > 1
+               for d in _shard_dims(logits.placements, logits.ndim - 1))
 
 
 def embedding(table: DTensor, tokens: torch.Tensor) -> DTensor:
     """``table[tokens]`` of a placed table (V, d), Megatron's
     vocab-parallel lookup: each rank looks up the tokens that fall in its
-    shard of the vocab (zeros for the rest), so the result holds partial
-    sums over the vocab's mesh dims, and is split over the batch as the
+    shard of the vocab (zeros for the rest), and one all-reduce over the
+    vocab's mesh dims sums them; the result is split over the batch as the
     tokens are. The backward pass (an accumulating scatter into the
     table's shard) is local too, where DTensor's rule for it fails in some
     releases."""
-    from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
-
     mesh = table.device_mesh
     vocab_dims = [i for i in _shard_dims(table.placements, 0)
                   if mesh.size(i) > 1]
@@ -160,11 +802,9 @@ def embedding(table: DTensor, tokens: torch.Tensor) -> DTensor:
     # sums over the mesh dims that split the batch
     table_grads = [Partial() if isinstance(rows[i], Shard)
                    else table_placements[i] for i in range(mesh.ndim)]
-    run = local_map(lookup, out_placements=out,
-                    in_placements=(table_placements, rows),
-                    in_grad_placements=(table_grads, rows),
-                    device_mesh=mesh, redistribute_inputs=True)
-    return run(table, tokens)
+    run = _local_map(lookup, out, (table_placements, rows),
+                     (table_grads, rows), mesh)
+    return _reduced(run(_grad_to(table), tokens))
 
 
 def stack_layers(tensors: List[DTensor]) -> DTensor:
@@ -183,43 +823,56 @@ def stack_layers(tensors: List[DTensor]) -> DTensor:
         run_check=False, shape=shape, stride=_contiguous_strides(shape))
 
 
-def local_attention(fn, q, k, v, mask, **kw):
-    """``fn(q, k, v, mask, **kw)`` (an attention over q (B, S, H, D) and k,
-    v (B, T, Hkv, D), mask None or broadcasting to (B, 1, S, T)) run on each
-    rank's own shard, as the JAX package's partitioner runs it: the batch
-    split as q's is, the heads split over the mesh dims that split q's or
-    k's heads where the kv heads divide, k and v whole over their length.
-    Each rank attends its rows and heads alone; DTensor's rules for the
-    einsums inside would instead merge a batch split with a head split,
-    which some releases cannot view."""
-    from torch.distributed.tensor.experimental import local_map
+def unstack(t: DTensor) -> List[DTensor]:
+    """The layers of a DTensor stacked on dim 0 (never split), each rank's
+    shard of each: placed as the stack is, one dim nearer."""
+    mesh = t.device_mesh
+    placements = [Shard(p.dim - 1) if _is_shard(p) else p
+                  for p in t.placements]
+    shape, local = tuple(t.shape[1:]), t.to_local()
+    return [DTensor.from_local(local[i], mesh, placements, run_check=False,
+                               shape=torch.Size(shape),
+                               stride=_contiguous_strides(shape))
+            for i in range(t.shape[0])]
 
-    mesh = next(t for t in (q, k, v) if isinstance(t, DTensor)).device_mesh
-    q, k, v = (_as_dtensor(t, mesh) for t in (q, k, v))
-    target, batch, split = [], [], 1
-    for i in range(mesh.ndim):
-        p = q.placements[i]
-        if isinstance(p, Shard) and p.dim == 0:
-            target.append(Shard(0))
-            batch.append(Shard(0))
-            continue
-        batch.append(Replicate())
-        heads = any(isinstance(t.placements[i], Shard)
-                    and t.placements[i].dim == 2 for t in (q, k))
-        if heads and k.shape[2] % (split * mesh.size(i)) == 0:
-            target.append(Shard(2))
-            split *= mesh.size(i)
-        else:
-            target.append(Replicate())
-    mask_placements = None
-    if isinstance(mask, DTensor):
-        mask_placements = [b if mask.shape[0] == q.shape[0]
-                           else Replicate() for b in batch]
-    # a list is one output's placements (a tuple would be one per output)
-    run = local_map(fn, out_placements=target,
-                    in_placements=(target, target, target, mask_placements),
-                    device_mesh=mesh, redistribute_inputs=True)
-    return run(q, k, v, mask, **kw)
+
+def unsplit_layers(t: DTensor, lanes: int) -> DTensor:
+    """A stack (L, B, ...) whose layers are split over the data axes (the
+    placement ``cache_pspecs`` gives a Mamba-2 state, whose name marks no
+    layer axis), placed with every layer on every rank: each mesh dim that
+    split the layers splits the rows (dim 1) instead, an all-to-all, and
+    "model" splits dim ``lanes`` (the heads, the channels) where it
+    divides it and the stack is whole there. Each rank then steps its own
+    rows and lanes of each layer; ``write_back`` returns them."""
+    mesh = t.device_mesh
+    hd = _model_dim(mesh)
+    target = list(t.placements)
+    if (hd is not None and isinstance(target[hd], Replicate)
+            and t.shape[lanes] % mesh.size(hd) == 0):
+        target[hd] = Shard(lanes)
+        t = t.redistribute(mesh, target)
+    target = [Shard(1) if _is_shard(p, 0) else p for p in target]
+    return t.redistribute(mesh, target)
+
+
+def write_back(stack: DTensor, work: DTensor) -> None:
+    """Copy ``work`` (``unsplit_layers`` of ``stack``, stepped) into
+    ``stack``'s own shards, in place: the rows back to layers (an
+    all-to-all), then, layer by layer, the lanes gathered (an all-gather)
+    where ``stack`` holds them whole."""
+    mesh = stack.device_mesh
+    target = [p if _is_shard(p, 0) else q
+              for p, q in zip(stack.placements, work.placements)]
+    local = work.redistribute(mesh, target).to_local()
+    gather = [(i, q.dim - 1) for i, (p, q) in
+              enumerate(zip(stack.placements, target)) if p != q]
+    out = stack.to_local()
+    for j in range(local.shape[0]):
+        layer = local[j]
+        for i, dim in gather:
+            layer = funcol.all_gather_tensor(layer, gather_dim=dim,
+                                             group=(mesh, i))
+        out[j].copy_(layer)
 
 
 def local_scan(fn, xc, pre_i, pre_r, lam, pre_y, h0):
@@ -230,9 +883,6 @@ def local_scan(fn, xc, pre_i, pre_r, lam, pre_y, h0):
     ``xc``'s is and the lanes split over the mesh dims that split any of
     its operands' lanes. Each step of its walk through time is then one
     local op, not one DTensor dispatch."""
-    from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
-
     mesh = xc.device_mesh
     ops = [_as_dtensor(t, mesh) for t in (xc, pre_i, pre_r, pre_y)]
     seq, lanes, state, split = [], [], [], 1
@@ -257,37 +907,11 @@ def local_scan(fn, xc, pre_i, pre_r, lam, pre_y, h0):
     # dims that split the batch
     lam_grads = [Partial() if isinstance(seq[i], Shard) and seq[i].dim == 0
                  else lanes[i] for i in range(mesh.ndim)]
-    run = local_map(fn, out_placements=(seq, state),
-                    in_placements=(seq, seq, seq, lanes, seq, state),
-                    in_grad_placements=(seq, seq, seq, lam_grads, seq,
-                                        state),
-                    device_mesh=mesh, redistribute_inputs=True)
-    return run(ops[0], ops[1], ops[2], _as_dtensor(lam, mesh), ops[3],
+    run = _local_map(fn, (seq, state), (seq, seq, seq, lanes, seq, state),
+                     (seq, seq, seq, lam_grads, seq, state), mesh)
+    return run(*(_grad_to(t) for t in ops[:3]),
+               _grad_to(_as_dtensor(lam, mesh)), _grad_to(ops[3]),
                _as_dtensor(h0, mesh))
-
-
-def reduce_onto_vocab(logits: DTensor) -> DTensor:
-    """``logits`` with each mesh dim that holds partial sums reduced onto a
-    vocab shard (a reduce-scatter), where the vocab divides over it, else
-    whole: DTensor may leave the head's product unreduced where its input
-    was split over the hidden dim. Nothing moves where no dim is
-    partial."""
-    from torch.distributed.tensor import Partial
-
-    mesh, vdim = logits.device_mesh, logits.ndim - 1
-    target, split = [], 1
-    for i, p in enumerate(logits.placements):
-        if isinstance(p, Partial):
-            fits = logits.shape[vdim] % (split * mesh.size(i)) == 0
-            target.append(Shard(vdim) if fits else Replicate())
-            split *= mesh.size(i) if fits else 1
-        else:
-            target.append(p)
-            if isinstance(p, Shard) and p.dim == vdim:
-                split *= mesh.size(i)
-    if tuple(target) == tuple(logits.placements):
-        return logits
-    return logits.redistribute(mesh, target)
 
 
 class _VocabParallelNLL(torch.autograd.Function):

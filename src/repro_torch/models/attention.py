@@ -20,8 +20,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.models.common import (ModelConfig, RopeTables, apply_rope,
-                                       dense_init, is_dtensor, merge_dims,
-                                       rms_norm, split_dim)
+                                       dense_init, is_dtensor, matmul,
+                                       merge_dims, rms_norm, split_dim)
 
 NEG_INF = -1e30
 
@@ -43,20 +43,30 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Grouped-query: H = G*Hkv query heads share each kv head. DTensor
     operands attend shard by shard (``distributed.parallel
-    .local_attention``).
+    .local_attention``; over a cache whose slots are split, through
+    ``gqa_attention_partial``).
     """
     if is_dtensor(q) or is_dtensor(k):
         from repro_torch.distributed import parallel
         return parallel.local_attention(gqa_attention, q, k, v, mask,
+                                        partial=gqa_attention_partial,
                                         causal=causal, use_pallas=use_pallas)
     if use_pallas and causal and mask is None and q.shape[1] == k.shape[1]:
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=True)
     B, S, H, D = q.shape
-    T = k.shape[1]
-    Hkv = k.shape[2]
-    G = H // Hkv
-    qg = q.reshape(B, S, Hkv, G, D).float()
+    probs = torch.softmax(_gqa_scores(q, k, mask, causal), dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def _gqa_scores(q, k, mask, causal: bool = False) -> torch.Tensor:
+    """The masked fp32 scores (B, Hkv, G, S, T) of q (B,S,H,D) against k
+    (B,T,Hkv,D), NEG_INF off the mask and, with ``causal``, above the
+    diagonal."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, D).float()
     scores = torch.einsum("bshgd,bthd->bhgst", qg, k.float()) * (D ** -0.5)
     if causal:
         cm = torch.tril(torch.ones((S, T), dtype=torch.bool,
@@ -65,9 +75,25 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         m = mask[:, :, None] if mask.ndim == 4 else mask
         scores = torch.where(m, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
-    return out.reshape(B, S, H, D).to(q.dtype)
+    return scores
+
+
+def _softmax_parts(scores: torch.Tensor, v: torch.Tensor, spec: str):
+    """A softmax over the last dim of ``scores`` in three fp32 parts to
+    combine with other parts of the keys': the max m, the sum l of
+    exp(scores - m), and the product acc of those weights with v
+    (``torch.einsum(spec, weights, v)``). Over all parts the output is
+    sum(acc e^(m - M)) / sum(l e^(m - M)), M the max of the m."""
+    mx = scores.amax(dim=-1)
+    e = torch.exp(scores - mx[..., None])
+    return mx, e.sum(dim=-1), torch.einsum(spec, e, v.float())
+
+
+def gqa_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, mask: torch.Tensor):
+    """``gqa_attention`` over one part of the keys (``_softmax_parts``): m
+    and l (B, Hkv, G, S), acc (B, Hkv, G, S, D)."""
+    return _softmax_parts(_gqa_scores(q, k, mask), v, "bhgst,bthd->bhgsd")
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -152,9 +178,10 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, num_kv: int):
-    q = split_dim(x @ p["wq"].to(x.dtype), 2, (cfg.num_heads, cfg.head_dim))
-    k = split_dim(x @ p["wk"].to(x.dtype), 2, (num_kv, cfg.head_dim))
-    v = split_dim(x @ p["wv"].to(x.dtype), 2, (num_kv, cfg.head_dim))
+    q, k, v = matmul(x, *(p[n].to(x.dtype) for n in ("wq", "wk", "wv")))
+    q = split_dim(q, 2, (cfg.num_heads, cfg.head_dim))
+    k = split_dim(k, 2, (num_kv, cfg.head_dim))
+    v = split_dim(v, 2, (num_kv, cfg.head_dim))
     if cfg.use_qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -252,7 +279,7 @@ def attention_forward(p, cfg: ModelConfig, x: torch.Tensor,
         out = gqa_attention(q, k, v, None, causal=True,
                             use_pallas=cfg.use_pallas)
     out = merge_dims(out, 2)
-    y = out @ p["wo"].to(out.dtype)
+    y = matmul(out, p["wo"].to(out.dtype))
     cache = _cache_from_prefill(cfg, k, v, window, cache_len)
     return y, cache
 
@@ -283,6 +310,10 @@ def _cache_from_prefill(cfg: ModelConfig, k, v, window: int,
         pad = cache_len - k.shape[1]
         k = _pad_seq(k, pad)
         v = _pad_seq(v, pad)
+    if is_dtensor(k):
+        # placed as a decode cache: the heads split, or the slots
+        from repro_torch.distributed import parallel
+        k, v = parallel.cache_layout(k, 2), parallel.cache_layout(v, 2)
     return KVCache(k=k, v=v)
 
 
@@ -311,7 +342,6 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: KVCache,
     ``decode_slots``; ``rope``: the tables of its positions. The cache is
     written in place and returned."""
     num_kv = cfg.num_kv_heads if num_kv is None else num_kv
-    B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x, num_kv)
     if cfg.use_rope:
         q = apply_rope(q, rope)
@@ -320,8 +350,8 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: KVCache,
     v_new = _write_cache(cfg, cache.v, v, slots)
     out = decode_attention(q, k_new, v_new, slots.valid,
                            use_pallas=cfg.use_pallas)
-    out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
-    y = out @ p["wo"].to(out.dtype)
+    out = merge_dims(out, 2)
+    y = matmul(out, p["wo"].to(out.dtype))
     return y, KVCache(k=k_new, v=v_new)
 
 
@@ -339,20 +369,18 @@ def cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
     (``encoder_kv``). Only q is projected, with no qk-norm; every query
     attends to every frame through the plain ``gqa_attention``, as in the
     JAX package."""
-    q = split_dim(x @ p["wq"].to(x.dtype), 2, (cfg.num_heads, cfg.head_dim))
+    q = split_dim(matmul(x, p["wq"].to(x.dtype)), 2,
+                  (cfg.num_heads, cfg.head_dim))
     out = merge_dims(gqa_attention(q, enc_k, enc_v, None), 2)
-    return out @ p["wo"].to(out.dtype)
+    return matmul(out, p["wo"].to(out.dtype))
 
 
 def encoder_kv(p, cfg: ModelConfig, enc_out: torch.Tensor):
     """The cross-attention K and V of the encoder's output (B,T,d), each
     (B,T,Hkv,D)."""
-    B, T, _ = enc_out.shape
-    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(
-        B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(
-        B, T, cfg.num_kv_heads, cfg.head_dim)
-    return k, v
+    heads = (cfg.num_kv_heads, cfg.head_dim)
+    k, v = matmul(enc_out, *(p[n].to(enc_out.dtype) for n in ("wk", "wv")))
+    return split_dim(k, 2, heads), split_dim(v, 2, heads)
 
 
 # ---------------------------------------------------------------------------
@@ -399,11 +427,11 @@ def _mla_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope: RopeTables):
     B, S, _ = x.shape
     H = cfg.num_heads
     qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-    q = split_dim(x @ p["wq"].to(x.dtype), 2, (H, qk_dim))
+    q = split_dim(matmul(x, p["wq"].to(x.dtype)), 2, (H, qk_dim))
     q_nope, q_rope = torch.split(
         q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, rope)
-    ckv = x @ p["w_dkv"].to(x.dtype)                      # (B,S,rank+rope)
+    ckv = matmul(x, p["w_dkv"].to(x.dtype))               # (B,S,rank+rope)
     c_kv, k_rope = torch.split(
         ckv, [cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
     c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
@@ -414,9 +442,10 @@ def _mla_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope: RopeTables):
 def _mla_up(p, cfg: ModelConfig, c_kv: torch.Tensor):
     """K (nope part) and V of every latent: (B,T,H,nope), (B,T,H,v)."""
     H = cfg.num_heads
-    k_nope = split_dim(c_kv @ p["w_uk"].to(c_kv.dtype), 2,
-                       (H, cfg.qk_nope_head_dim))
-    v = split_dim(c_kv @ p["w_uv"].to(c_kv.dtype), 2, (H, cfg.v_head_dim))
+    k_nope, v = matmul(c_kv, *(p[n].to(c_kv.dtype)
+                               for n in ("w_uk", "w_uv")))
+    k_nope = split_dim(k_nope, 2, (H, cfg.qk_nope_head_dim))
+    v = split_dim(v, 2, (H, cfg.v_head_dim))
     return k_nope, v
 
 
@@ -427,14 +456,39 @@ def _mla_attend(p, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope,
     (B, H, S, T)."""
     k_nope, v = _mla_up(p, cfg, c_kv)
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    if is_dtensor(q_nope):
+        from repro_torch.distributed import parallel
+        out = parallel.local_heads(_mla_scores, (q_nope, q_rope, k_nope, v),
+                                   k_rope, mask, scale, partial=_mla_partial)
+    else:
+        out = _mla_scores(q_nope, q_rope, k_nope, v, k_rope, mask, scale)
+    out = merge_dims(out, 2).to(q_nope.dtype)
+    return matmul(out, p["wo"].to(out.dtype))
+
+
+def _mla_logits(q_nope, q_rope, k_nope, k_rope, mask, scale):
+    """MLA's masked fp32 scores (B,H,S,T): q_nope (B,S,H,nope) against
+    k_nope (B,T,H,nope) plus q_rope (B,S,H,rope) against the shared k_rope
+    (B,T,rope)."""
     s_nope = torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
     s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(), k_rope.float())
     scores = (s_nope + s_rope) * scale
-    scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhst,bthd->bshd", probs, v.float())
-    out = merge_dims(out, 2).to(q_nope.dtype)
-    return out @ p["wo"].to(out.dtype)
+    return torch.where(mask, scores, NEG_INF)
+
+
+def _mla_scores(q_nope, q_rope, k_nope, v, k_rope, mask, scale):
+    """MLA's softmax attention over v (B,T,H,v): (B,S,H,v) fp32."""
+    probs = torch.softmax(
+        _mla_logits(q_nope, q_rope, k_nope, k_rope, mask, scale), dim=-1)
+    return torch.einsum("bhst,bthd->bshd", probs, v.float())
+
+
+def _mla_partial(q_nope, q_rope, k_nope, v, k_rope, mask, scale):
+    """``_mla_scores`` over one part of the keys (``_softmax_parts``): m
+    and l (B,H,S), acc (B,H,S,v)."""
+    return _softmax_parts(
+        _mla_logits(q_nope, q_rope, k_nope, k_rope, mask, scale), v,
+        "bhst,bthd->bhsd")
 
 
 def _mla_attend_chunked(p, cfg: ModelConfig, q_nope, q_rope, c_kv,
@@ -449,7 +503,7 @@ def _mla_attend_chunked(p, cfg: ModelConfig, q_nope, q_rope, c_kv,
         B, T, H, cfg.qk_rope_head_dim)], dim=-1)
     out = flash_attention_chunked(q_cat, k_cat, v, causal=True)
     out = merge_dims(out, 2)
-    return out @ p["wo"].to(out.dtype)
+    return matmul(out, p["wo"].to(out.dtype))
 
 
 def mla_forward(p, cfg: ModelConfig, x: torch.Tensor, rope: RopeTables,
@@ -470,6 +524,10 @@ def mla_forward(p, cfg: ModelConfig, x: torch.Tensor, rope: RopeTables,
     if cache_len is not None and cache_len > S:
         c_kv = _pad_seq(c_kv, cache_len - S)
         k_rope = _pad_seq(k_rope, cache_len - S)
+    if is_dtensor(c_kv):
+        # placed as a decode cache: the latents split over their rank
+        from repro_torch.distributed import parallel
+        c_kv = parallel.cache_layout(c_kv, 2)
     return y, MLACache(c_kv=c_kv, k_rope=k_rope)
 
 
@@ -483,6 +541,12 @@ def mla_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: MLACache,
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, rope)
     c_new = _write_cache(cfg, cache.c_kv, c_kv, slots)
     kr_new = _write_cache(cfg, cache.k_rope, k_rope, slots)
-    y = _mla_attend(p, cfg, q_nope, q_rope, c_new, kr_new,
-                    slots.valid[:, None, None])
+    c_att, kr_att, valid = c_new, kr_new, slots.valid[:, None, None]
+    if is_dtensor(c_new):
+        # where the data axes leave the batch whole, each of their ranks
+        # attends a part of the slots
+        from repro_torch.distributed import parallel
+        c_att, kr_att, valid = parallel.split_slots(
+            q_nope, (c_att, 1), (kr_att, 1), (valid, -1))
+    y = _mla_attend(p, cfg, q_nope, q_rope, c_att, kr_att, valid)
     return y, MLACache(c_kv=c_new, k_rope=kr_new)

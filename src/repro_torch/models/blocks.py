@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (ModelConfig, dense_init, ffn_act,
-                                       is_dtensor, is_gated, rms_norm,
+                                       is_dtensor, is_gated, matmul, rms_norm,
                                        uniform_init)
 
 
@@ -42,13 +42,13 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig,
 
 
 def ffn_forward(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    up = x @ p["w_in"].to(x.dtype)
     if is_gated(cfg.ffn_activation):
-        gate = x @ p["w_gate"].to(x.dtype)
+        up, gate = matmul(x, p["w_in"].to(x.dtype), p["w_gate"].to(x.dtype))
         h = ffn_act(gate, up, cfg.ffn_activation)
     else:
+        up = matmul(x, p["w_in"].to(x.dtype))
         h = ffn_act(up, up, cfg.ffn_activation)
-    return h @ p["w_out"].to(x.dtype)
+    return matmul(h, p["w_out"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +119,7 @@ def route(p, cfg: ModelConfig, x: torch.Tensor):
     descending sort, cut to K. No caller draws the router's jitter (the
     JAX package's models pass no key for it either)."""
     K = cfg.top_k
-    logits = (x @ p["router"].to(x.dtype)).float()               # (B,S,E)
+    logits = matmul(x, p["router"].to(x.dtype)).float()          # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_idx = vals[..., :K], idx[..., :K]
@@ -152,25 +152,38 @@ def moe_forward_dense(p, cfg: ModelConfig, x: torch.Tensor
     and the combine weights (zero off a token's top k) mask the result.
     Computes E/top_k times the routed FLOPs, as the JAX package's baseline
     does."""
-    B, S, D = x.shape
     E = cfg.num_experts
-    N = B * S
     probs, top_w, top_idx = route(p, cfg, x)
     onehot = (top_idx[..., None] == torch.arange(E, device=x.device)).float()
     combine = (onehot * top_w[..., None]).sum(-2)                # (B,S,E)
-    xe = x.reshape(N, D)[None].expand(E, N, D)
-    gate = _mm_f32(xe, p["w_gate"])                              # (E,N,F)
-    up = _mm_f32(xe, p["w_in"])
-    h = ffn_act(gate, up, "swiglu") * combine.reshape(N, E).t()[..., None]
-    F_ = h.shape[-1]
-    y = _mm_f32(h.transpose(0, 1).reshape(N, E * F_),
-                p["w_out"].reshape(E * F_, D))
-    y = _with_shared(p, cfg, y.reshape(B, S, D).to(x.dtype), x)
+    experts = (p["w_gate"], p["w_in"], p["w_out"])
+    if is_dtensor(x):
+        from repro_torch.distributed import parallel
+        y = parallel.moe_experts(_dense_experts, x, combine, *experts)
+    else:
+        y = _dense_experts(x, combine, *experts)
+    y = _with_shared(p, cfg, y.to(x.dtype), x)
     # Switch-style load-balance loss: E * sum_e f_e * P_e
     f = (combine > 0).float().mean(dim=(0, 1))                   # routed share
     lb = E * torch.sum(f * probs.mean(dim=(0, 1)))
     return y, MoEAux(load_balance_loss=lb,
                      router_entropy=_router_entropy(probs))
+
+
+def _dense_experts(x, combine, w_gate, w_in, w_out) -> torch.Tensor:
+    """The experts of the dense dispatch, each on every token of x
+    (B,S,D), weighted by combine (B,S,E) and summed: (B,S,D) fp32. E is
+    the experts' own count (a rank's share on a placed step)."""
+    B, S, D = x.shape
+    E, N = w_gate.shape[0], B * S
+    xe = x.reshape(N, D)[None].expand(E, N, D)
+    gate = _mm_f32(xe, w_gate)                                   # (E,N,F)
+    up = _mm_f32(xe, w_in)
+    h = ffn_act(gate, up, "swiglu") * combine.reshape(N, E).t()[..., None]
+    F_ = h.shape[-1]
+    y = _mm_f32(h.transpose(0, 1).reshape(N, E * F_),
+                w_out.reshape(E * F_, D))
+    return y.reshape(B, S, D)
 
 
 def capacity_slots(e_flat: torch.Tensor, num_experts: int, capacity: int):
@@ -231,7 +244,11 @@ def moe_forward_capacity(p, cfg: ModelConfig, x: torch.Tensor
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  tail: Optional[torch.Tensor] = None):
     """Depthwise causal conv along seq. x (B,S,W), w (k,W), tail (B,k-1,W).
-    Returns (out (B,S,W), new_tail (B,k-1,W))."""
+    Returns (out (B,S,W), new_tail (B,k-1,W)). Placed operands convolve
+    each rank's channels (``distributed.parallel.local_conv``)."""
+    if is_dtensor(x):
+        from repro_torch.distributed import parallel
+        return parallel.local_conv(_causal_conv, x, w, tail)
     k = w.shape[0]
     if tail is None:
         tail = torch.zeros((x.shape[0], k - 1, x.shape[-1]), dtype=x.dtype,
@@ -319,13 +336,13 @@ def rglru_block_forward(p, cfg: ModelConfig, x: torch.Tensor,
     one-step scan is the JAX package's inline decode step."""
     B, S, _ = x.shape
     W = cfg.lru_width
-    xb = x @ p["w_x"].to(x.dtype)                          # (B,S,W)
-    pre_y = x @ p["w_y"].to(x.dtype)                       # y branch
+    # (B,S,W) each: the recurrence's input and the y branch
+    xb, pre_y = matmul(x, p["w_x"].to(x.dtype), p["w_y"].to(x.dtype))
     tail = state.conv if state is not None else None
     xc, new_tail = _causal_conv(xb, p["conv_w"].to(xb.dtype), tail)
     xc32 = xc.float()
-    pre_i = xc32 @ p["w_input_gate"].float()
-    pre_r = xc32 @ p["w_rec_gate"].float()
+    pre_i, pre_r = matmul(xc32, p["w_input_gate"].float(),
+                          p["w_rec_gate"].float())
     h0 = (state.h if state is not None
           else torch.zeros((B, W), dtype=torch.float32, device=x.device))
     if cfg.use_pallas:
@@ -340,7 +357,7 @@ def rglru_block_forward(p, cfg: ModelConfig, x: torch.Tensor,
     else:
         out, h_last = gated_scan(xc32, pre_i, pre_r, p["lambda_param"],
                                  pre_y, h0)
-    y = out @ p["w_out"].to(x.dtype)
+    y = matmul(out, p["w_out"].to(x.dtype))
     if state is None:
         return y, RGLRUState(h=h_last, conv=new_tail)
     state.h.copy_(h_last)
@@ -390,8 +407,13 @@ def init_ssd_block(gen: torch.Generator, cfg: ModelConfig):
 def _ssd_split(p, cfg: ModelConfig, u: torch.Tensor):
     d_in = cfg.d_inner
     G, N, H = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
-    zxbcdt = u @ p["w_in"].to(u.dtype)
-    z, xBC, dt = torch.split(zxbcdt, [d_in, d_in + 2 * G * N, H], dim=-1)
+    zxbcdt = matmul(u, p["w_in"].to(u.dtype))
+    sizes = [d_in, d_in + 2 * G * N, H]
+    if is_dtensor(zxbcdt):
+        # the fused columns' split over "model" does not follow the parts
+        from repro_torch.distributed import parallel
+        return parallel.gather_parts(zxbcdt, sizes)
+    z, xBC, dt = torch.split(zxbcdt, sizes, dim=-1)
     return z, xBC, dt
 
 
@@ -464,22 +486,63 @@ def ssd_block_forward(p, cfg: ModelConfig, u: torch.Tensor,
                       ) -> Tuple[torch.Tensor, SSDState]:
     """Full Mamba-2 block. u: (B,S,d_model). S==1 with a state: the
     recurrent decode step (plain PyTorch, as in the JAX package), which
-    scales and adds into ``state.ssm`` itself."""
-    Bsz, S, _ = u.shape
-    d_in = cfg.d_inner
-    G, N, H, P = (cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads,
-                  cfg.ssm_head_dim)
+    scales and adds into ``state.ssm`` itself. Placed operands run the SSD
+    on each rank's heads (``distributed.parallel.ssd_heads``)."""
     z, xBC, dt = _ssd_split(p, cfg, u)
     tail = state.conv if state is not None else None
     xBC, new_tail = _causal_conv(xBC, p["conv_w"].to(xBC.dtype), tail)
+    ssm = state.ssm if state is not None else None
+    small = (p["dt_bias"], p["A_log"], p["D"])
+    if is_dtensor(xBC):
+        from repro_torch.distributed import parallel
+
+        def heads(lo, hi, *a):
+            return _ssd_heads(cfg, lo, hi, *a)
+        y, final = parallel.ssd_heads(heads, cfg.ssm_nheads, z,
+                                      parallel.gather_model(xBC), dt,
+                                      *small, ssm)
+    else:
+        y, final = _ssd_heads(cfg, 0, cfg.ssm_nheads, z, xBC, dt, *small,
+                              ssm)
+    # gated RMSNorm (mamba2 style): norm(y * silu(z)), on the plain path
+    # with or without the kernels, as in the JAX package
+    y = rms_norm(y.to(u.dtype), p["norm_w"], cfg.norm_eps)
+    out = matmul(y, p["w_out"].to(u.dtype))
+    if state is None:
+        return out, SSDState(ssm=final, conv=new_tail)
+    if u.shape[1] > 1:
+        state.ssm.copy_(final)
+    state.conv.copy_(new_tail)
+    return out, state
+
+
+def _ssd_heads(cfg: ModelConfig, lo: int, hi: int, z, xBC, dt, dt_bias,
+               A_log, D, ssm):
+    """The SSD of heads [lo, hi) of the block's H, and the output gate:
+    (y * silu(z) (B,S,(hi-lo)*P) fp32, the final state (B,hi-lo,P,N)).
+    z (B,S,d_in), xBC (B,S,conv_dim) after the conv and dt (B,S,H) hold
+    every head; ``ssm`` is a decode step's state of these heads (scaled
+    and added into in place) or None."""
+    Bsz, S, _ = xBC.shape
+    d_in = cfg.d_inner
+    G, N, H, P = (cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads,
+                  cfg.ssm_head_dim)
     xBC = F.silu(xBC.float())
     x, Bmat, Cmat = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
+    if (lo, hi) != (0, H):
+        x, z = x[..., lo * P:hi * P], z[..., lo * P:hi * P]
+        dt, dt_bias = dt[..., lo:hi], dt_bias[lo:hi]
+        A_log, D = A_log[lo:hi], D[lo:hi]
+        # every head reads the one group's B and C (each config's
+        # ssm_ngroups is 1)
+        assert G == 1, f"a split over heads needs ssm_ngroups 1, not {G}"
+        H = hi - lo
     x = x.reshape(Bsz, S, H, P)
     Bmat = Bmat.reshape(Bsz, S, G, N)
     Cmat = Cmat.reshape(Bsz, S, G, N)
-    dt = F.softplus(dt.float() + p["dt_bias"])              # (B,S,H)
-    A = torch.exp(p["A_log"])                                # (H,) > 0
-    if S == 1 and state is not None:
+    dt = F.softplus(dt.float() + dt_bias)                    # (B,S,H)
+    A = torch.exp(A_log)                                     # (H,) > 0
+    if S == 1 and ssm is not None:
         # recurrent step: S' = exp(-dt*A) S + dt * B x^T ; y = C.S' + D x
         dA = torch.exp(-dt[:, 0, :, None, None] * A[None, :, None, None])
         rep = H // G
@@ -488,27 +551,17 @@ def ssd_block_forward(p, cfg: ModelConfig, u: torch.Tensor,
         upd = dt[:, 0, :, None, None] * torch.einsum(
             "bhn,bhp->bhpn", Bs, x[:, 0])
         # dA * S + upd, rounded as the JAX package's functional form
-        final = state.ssm.mul_(dA).add_(upd)
+        final = ssm.mul_(dA).add_(upd)
         y = torch.einsum("bhn,bhpn->bhp", Cs, final)
-        y = y + p["D"][None, :, None] * x[:, 0]
+        y = y + D[None, :, None] * x[:, 0]
         y = y[:, None]                                       # (B,1,H,P)
     else:
         # a prefill starts from a zero state, as in the JAX package
         y, final = ssd_chunked(x, dt, A, Bmat, Cmat, cfg.ssm_chunk,
                                use_pallas=cfg.use_pallas)
-        y = y + p["D"][None, None, :, None] * x
-    y = y.reshape(Bsz, S, d_in)
-    # gated RMSNorm (mamba2 style): norm(y * silu(z)), on the plain path
-    # with or without the kernels, as in the JAX package
-    y = y * F.silu(z.float())
-    y = rms_norm(y.to(u.dtype), p["norm_w"], cfg.norm_eps)
-    out = y @ p["w_out"].to(u.dtype)
-    if state is None:
-        return out, SSDState(ssm=final, conv=new_tail)
-    if S > 1:
-        state.ssm.copy_(final)
-    state.conv.copy_(new_tail)
-    return out, state
+        y = y + D[None, None, :, None] * x
+    y = y.reshape(Bsz, S, H * P)
+    return y * F.silu(z.float()), final
 
 
 def init_ssd_state(cfg: ModelConfig, batch: int,

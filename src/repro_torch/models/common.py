@@ -270,11 +270,18 @@ def uniform_init(gen: torch.Generator, shape) -> torch.Tensor:
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
              use_pallas: bool = False) -> torch.Tensor:
     """The plain path is the kernel's own plain version, so the model and
-    the kernel's check share one reference."""
+    the kernel's check share one reference. A DTensor whose last dim is
+    split sums its squares over the shards
+    (``distributed.parallel.rms_norm``); on one whose last dim is whole the
+    norm is local."""
     if use_pallas:
         from repro_torch.kernels import ops as kops
         return kops.rmsnorm(x, weight, eps=eps)
     from repro_torch.kernels.ref import rmsnorm as rmsnorm_plain
+    if is_dtensor(x) and is_dtensor(weight):
+        from repro_torch.distributed import parallel
+        if parallel.last_dim_split(x):
+            return parallel.rms_norm(x, weight, eps)
     return rmsnorm_plain(x, weight, eps=eps)
 
 
@@ -327,8 +334,8 @@ def is_gated(kind: str) -> bool:
 # ---------------------------------------------------------------------------
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``. A DTensor table is looked up shard by shard
-    (``distributed.parallel.embedding``)."""
+    """``table[tokens]``. A DTensor table is looked up shard by shard and
+    the shards' rows summed (``distributed.parallel.embedding``)."""
     if is_dtensor(table):
         from repro_torch.distributed import parallel
         return parallel.embedding(table, tokens)
@@ -345,24 +352,46 @@ def stack_layers(tensors) -> torch.Tensor:
     return torch.stack(tensors)
 
 
-def split_dim(t: torch.Tensor, dim: int, sizes) -> torch.Tensor:
-    """``t`` with dim ``dim`` viewed as ``sizes`` (their product is its
-    length). A DTensor's split of that dim is first brought to one that
-    divides ``sizes[0]`` (``distributed.parallel.divide_dim``)."""
+def unstack(t: torch.Tensor):
+    """The per-layer views of a tensor stacked over layers (dim 0), the
+    inverse of ``stack_layers``. A DTensor is unstacked shard by shard
+    (``distributed.parallel.unstack``)."""
     if is_dtensor(t):
         from repro_torch.distributed import parallel
-        t = parallel.divide_dim(t, dim, sizes[0])
+        return parallel.unstack(t)
+    return [t[i] for i in range(t.shape[0])]
+
+
+def split_dim(t: torch.Tensor, dim: int, sizes) -> torch.Tensor:
+    """``t`` with dim ``dim`` viewed as ``sizes`` (their product is its
+    length). A DTensor is viewed shard by shard, its split of that dim
+    kept where it divides ``sizes[0]`` (``distributed.parallel
+    .split_dim``)."""
+    if is_dtensor(t):
+        from repro_torch.distributed import parallel
+        return parallel.split_dim(t, dim, sizes)
     return t.reshape(t.shape[:dim] + tuple(sizes) + t.shape[dim + 1:])
 
 
 def merge_dims(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """``t`` with dims ``dim`` and ``dim + 1`` viewed as one. On a DTensor
-    the gradient is brought back to a split that divides the first
-    (``distributed.parallel.merge_dims``)."""
+    """``t`` with dims ``dim`` and ``dim + 1`` viewed as one; a DTensor
+    shard by shard (``distributed.parallel.merge_dims``)."""
     if is_dtensor(t):
         from repro_torch.distributed import parallel
         return parallel.merge_dims(t, dim)
     return t.reshape(t.shape[:dim] + (-1,) + t.shape[dim + 2:])
+
+
+def matmul(x: torch.Tensor, *ws: torch.Tensor):
+    """``x @ w`` of an activation and each weight (K, N): one product for
+    one weight, else a tuple. Placed weights (DTensors) take Megatron's
+    split their placement names, the products of one input in one region
+    (``distributed.parallel.linear``)."""
+    if any(is_dtensor(w) for w in ws) or is_dtensor(x):
+        from repro_torch.distributed import parallel
+        return parallel.linear(x, *ws)
+    out = tuple(x @ w for w in ws)
+    return out if len(out) > 1 else out[0]
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -448,7 +477,6 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     if is_dtensor(logits):
         from repro_torch.distributed import parallel
-        logits = parallel.reduce_onto_vocab(logits)
         if parallel.vocab_split(logits):
             return _mean_nll(parallel.vocab_parallel_nll(logits, labels),
                              mask)

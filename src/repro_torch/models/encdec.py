@@ -46,9 +46,10 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, dense_init, embed_lookup,
-                                       layer_norm, merge_dims, remat,
+                                       layer_norm, matmul, merge_dims, remat,
                                        sinusoidal_positions, sinusoids,
-                                       softmax_cross_entropy, stack_layers)
+                                       softmax_cross_entropy, stack_layers,
+                                       unstack)
 
 
 def _ln(x, p):
@@ -126,7 +127,7 @@ class EncDecLM:
         q, k, v = attn._project_qkv(lp["attn"], self.self_cfg, a,
                                     cfg.num_kv_heads)
         y = merge_dims(attn.gqa_attention(q, k, v, None), 2)
-        x = x + y @ lp["attn"]["wo"].to(y.dtype)
+        x = x + matmul(y, lp["attn"]["wo"].to(y.dtype))
         return x + blocks.ffn_forward(lp["ffn"], cfg, _ln(x, lp["ffn_norm"]))
 
     def _cross_kv(self, params, enc_out):
@@ -170,7 +171,7 @@ class EncDecLM:
 
     def _unembed(self, params, x):
         x = _ln(x, params["dec_final_norm"])
-        return x @ params["lm_head"].to(x.dtype)
+        return matmul(x, params["lm_head"].to(x.dtype))
 
     def _run_decoder(self, params, tokens, frames, cache_len=None):
         """(decoder output (B,S,d), the self caches per layer, cross_k,
@@ -179,7 +180,8 @@ class EncDecLM:
                                           self.encode(params, frames))
         x = self._embed_tokens(params, tokens)
         caches = []
-        for lp, ek, ev in zip(params["dec_layers"], cross_k, cross_v):
+        for lp, ek, ev in zip(params["dec_layers"], unstack(cross_k),
+                              unstack(cross_v)):
             x, c = remat(self.cfg.remat, self._dec_layer_full, lp, x, ek, ev,
                          cache_len)
             caches.append(c)
@@ -228,8 +230,9 @@ class EncDecLM:
         x = x + sinusoids(pos, cfg.d_model)[:, None, :].to(x.dtype)
         self_c = cache["self"]
         slots = attn.decode_slots(cfg, self_c.k.shape[2], pos)
-        for i, lp in enumerate(params["dec_layers"]):
-            x = self._dec_layer_decode(
-                lp, x, attn.KVCache(self_c.k[i], self_c.v[i]),
-                cache["cross_k"][i], cache["cross_v"][i], slots)
+        for lp, k, v, ek, ev in zip(
+                params["dec_layers"], unstack(self_c.k), unstack(self_c.v),
+                unstack(cache["cross_k"]), unstack(cache["cross_v"])):
+            x = self._dec_layer_decode(lp, x, attn.KVCache(k, v), ek, ev,
+                                       slots)
         return self._unembed(params, x), cache

@@ -32,7 +32,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
-                                       embed_lookup, model_rope, remat,
+                                       embed_lookup, matmul, model_rope, remat,
                                        softmax_cross_entropy)
 
 
@@ -117,7 +117,7 @@ class HybridLM:
                             cfg.use_pallas)
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
-        return x @ head.to(x.dtype)
+        return matmul(x, head.to(x.dtype))
 
     def _run(self, params, x, positions):
         unit_caches, pending = [], None

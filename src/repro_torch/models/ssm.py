@@ -24,8 +24,9 @@ import torch
 
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
-                                       embed_lookup, remat,
-                                       softmax_cross_entropy, stack_layers)
+                                       embed_lookup, is_dtensor, matmul, remat,
+                                       softmax_cross_entropy, stack_layers,
+                                       unstack)
 
 
 class MambaLM:
@@ -63,7 +64,7 @@ class MambaLM:
                             cfg.use_pallas)
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
-        return x @ head.to(x.dtype)
+        return matmul(x, head.to(x.dtype))
 
     def _run(self, params, x, *, collect_state: bool):
         cfg = self.cfg
@@ -108,12 +109,22 @@ class MambaLM:
         cfg = self.cfg
         x = self._embed(params, token)
         y = None
-        for i, lp in enumerate(params["layers"]):
+        work = cache
+        if is_dtensor(cache.ssm):
+            # a placed state's layers are split over the data axes: each
+            # rank steps its rows and heads of every layer instead
+            from repro_torch.distributed import parallel
+            work = blocks.SSDState(ssm=parallel.unsplit_layers(cache.ssm, 2),
+                                   conv=parallel.unsplit_layers(cache.conv, 3))
+        for lp, ssm, conv in zip(params["layers"], unstack(work.ssm),
+                                 unstack(work.conv)):
             x, r = add_rms_norm(x, y, lp["norm"], cfg.norm_eps,
                                 cfg.use_pallas)
             y, _ = blocks.ssd_block_forward(
-                lp["mixer"], cfg, r,
-                state=blocks.SSDState(ssm=cache.ssm[i], conv=cache.conv[i]))
+                lp["mixer"], cfg, r, state=blocks.SSDState(ssm=ssm, conv=conv))
+        if work is not cache:
+            parallel.write_back(cache.ssm, work.ssm)
+            parallel.write_back(cache.conv, work.conv)
         return self._unembed(params, x, y), cache
 
 

@@ -45,8 +45,9 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
-                                       embed_lookup, model_rope, remat,
-                                       softmax_cross_entropy, stack_layers)
+                                       embed_lookup, matmul, model_rope, remat,
+                                       softmax_cross_entropy, stack_layers,
+                                       unstack)
 
 
 class DecoderOnlyLM:
@@ -144,7 +145,7 @@ class DecoderOnlyLM:
                             cfg.use_pallas)
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
-        return x @ head.to(x.dtype)
+        return matmul(x, head.to(x.dtype))
 
     def _run_stack(self, params, x, positions, *, collect_cache: bool,
                    cache_len=None):
@@ -223,8 +224,8 @@ class DecoderOnlyLM:
             stacked[0].shape[2], pos)
         rope = model_rope(cfg, pos[:, None])
         layer_caches = cache["prefix"] + [
-            type(stacked)(*(t[i] for t in stacked))
-            for i in range(self.n_scanned)]
+            type(stacked)(*layer)
+            for layer in zip(*(unstack(t) for t in stacked))]
         for lp, c in zip(params["prefix"] + params["layers"], layer_caches):
             x, pending, _ = self._layer_decode(lp, x, pending, c, slots,
                                                rope)

@@ -13,12 +13,14 @@ of its models, on the CPU.
   of their count, one rank's share, in ``flops``, and the whole count
   unplaced, as ``flops_global`` is taken.
 * The vocab-parallel loss all-reduces (B, S) values and gathers no logits.
-* On real tensors: reduced dense and hybrid models placed on a 2x2 mesh
-  of four gloo processes give the plain models' loss, gradients and decode
-  logits at fp32 2e-5 (head-parallel and context-parallel caches); placed
-  on one
-  rank, its train step equals the plain step bit for bit, and the
-  dry-run's counts equal ``FlopCounterMode`` and the bytes placed.
+* On real tensors: reduced dense, hybrid and Mamba-2 models placed on a
+  2x2 mesh of four gloo processes, and a dense model with fewer kv heads
+  than the model axis, one whose query and kv heads the model axis does
+  not divide and the MLA/MoE model on a 1x4 mesh, give the plain
+  models' loss, gradients and decode logits at fp32 2e-5 (head-parallel
+  and context-parallel caches); placed on one rank, its train step equals
+  the plain step bit for bit, and the dry-run's counts equal
+  ``FlopCounterMode`` and the bytes placed.
 
 Every test sets up and destroys its own process group.
 """
@@ -291,39 +293,42 @@ from repro_torch.models import build_model, tree_tensors
 rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
                           int(sys.argv[3]), sys.argv[4])
 sys.path.insert(0, sys.argv[6])
-from test_torch_dryrun import CONFIGS, config, first_kv, watched
+from test_torch_dryrun import (BATCH, DECODE_ONLY, MESHES, config, first_kv,
+                               watched)
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=rank, world_size=world)
-mesh = make_debug_mesh(2, 2, device_type="cpu")
 results = {}
-for name in CONFIGS:
-    cfg = config(name)
+for name in sys.argv[7].split(","):
+    mesh = make_debug_mesh(*MESHES.get(name, (2, 2)), device_type="cpu")
+    cfg, B = config(name), BATCH.get(name, 4)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16),
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 16),
                                          dtype=np.int32))
-    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16),
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 16),
                                            dtype=np.int32))
     placed = with_sharding(params, param_pspecs(params, mesh), mesh)
     for p in tree_tensors(placed):
         p.requires_grad_(True)
-    bspec = batch_pspec(mesh, 4)
-    with implicit_replication():
-        loss = model.loss(placed, with_sharding(toks, bspec, mesh),
-                          with_sharding(labels, bspec, mesh))
-        loss.backward()
-    res = {"loss": loss.full_tensor().item(),
-           "grads": [p.grad.full_tensor().tolist()
-                     for p in watched(placed)]}
-    cache = model.init_cache(4, 32, device="cpu")
-    cache = with_sharding(cache, cache_pspecs(cache, mesh, 4), mesh)
+    bspec = batch_pspec(mesh, B)
+    res = {}
+    if name not in DECODE_ONLY:
+        with implicit_replication():
+            loss = model.loss(placed, with_sharding(toks, bspec, mesh),
+                              with_sharding(labels, bspec, mesh))
+            loss.backward()
+        res = {"loss": loss.full_tensor().item(),
+               "grads": [p.grad.full_tensor().tolist()
+                         for p in watched(placed)]}
+    cache = model.init_cache(B, 32, device="cpu")
+    cache = with_sharding(cache, cache_pspecs(cache, mesh, B), mesh)
     logits = []
     with implicit_replication(), torch.no_grad():
         for step in range(3):
             tok = with_sharding(toks[:, step:step + 1], bspec, mesh)
-            pos = with_sharding(torch.full((4,), step, dtype=torch.int32),
-                                batch_pspec(mesh, 4, extra_dims=0), mesh)
+            pos = with_sharding(torch.full((B,), step, dtype=torch.int32),
+                                batch_pspec(mesh, B, extra_dims=0), mesh)
             lg, cache = model.decode_step(placed, tok, cache, pos)
             logits.append(lg.full_tensor().tolist())
     res["decode"] = logits
@@ -337,31 +342,79 @@ dist.destroy_process_group()
 '''
 
 
-# reduced fp32 models placed on a 2x2 mesh: a dense one with a
-# head-parallel cache, one whose single kv head sends its cache's slots over
-# model, and the hybrid (the RG-LRU recurrence shard by shard)
-CONFIGS = ("dense", "dense_mqa", "hybrid")
+# reduced fp32 models placed on four gloo ranks: on a 2x2 mesh a dense one
+# with a head-parallel cache, one whose single kv head sends its cache's
+# slots over model, and the hybrid (the RG-LRU recurrence shard by shard);
+# on a 1x4 mesh, whose model axis is wider than the kv heads, a dense model
+# with 2 kv heads (each rank's query head against the kv head it reads; a
+# context-parallel cache) and the MLA/MoE model (an expert and a head a
+# rank). Then, in a second group of four processes, on a 2x2 mesh: Mamba-2
+# (the SSD on each rank's heads, its layer-split state stepped by rows and
+# heads) and the MLA/MoE model's decode of one row, which the data axis
+# leaves whole (each data rank attends half the slots); and on a 1x4 mesh
+# a dense model with 6 query heads and 2 kv heads, which the model axis
+# divides neither: each rank's padded share of 2 query heads (the last
+# rank's both padding, the output a partial sum), rank 1's heads 2 and 3
+# reading kv heads 0 and 1, two groups; a context-parallel cache
+CONFIGS = ("dense", "dense_mqa", "hybrid", "dense_kv2", "moe")
+MORE_CONFIGS = ("ssm", "moe_row", "dense_h6")
+MESHES = {"dense_kv2": (1, 4), "moe": (1, 4), "dense_h6": (1, 4)}
+BATCH = {"moe_row": 1}
+DECODE_ONLY = ("moe_row",)
+# the first cache leaf's placements: [data, model]
+CACHE_PLACEMENTS = {
+    "dense": [["Shard", 1], ["Shard", 3]],
+    "dense_mqa": [["Shard", 1], ["Shard", 2]],
+    "hybrid": [["Shard", 0], ["Shard", 1]],
+    "dense_kv2": [["Shard", 1], ["Shard", 2]],
+    "moe": [["Shard", 1], ["Shard", 3]],
+    "ssm": [["Shard", 0], ["Replicate", None]],
+    "moe_row": [["Replicate", None], ["Shard", 3]],
+    "dense_h6": [["Shard", 1], ["Shard", 2]],
+}
 
 
 def config(name):
     if name == "hybrid":
         return get_config("recurrentgemma-9b").reduced()
+    if name in ("moe", "moe_row"):
+        return get_config("deepseek-v2-lite-16b").reduced()
+    if name == "ssm":
+        return get_config("mamba2-1.3b").reduced()
+    if name == "dense_h6":
+        return get_config("llama3-3b").reduced().replace(num_heads=6,
+                                                         num_kv_heads=2)
     return get_config("llama3-3b").reduced().replace(
-        num_kv_heads=1 if name == "dense_mqa" else 4)
+        num_kv_heads={"dense_mqa": 1, "dense_kv2": 2}.get(name, 4))
 
 
 def watched(params):
     """The leaves whose gradients the test holds: the embedding and the
-    head (vocab-parallel), a first-layer weight, and the hybrid's lambda
-    (replicated over data, its gradient summed over the batch's ranks)."""
-    first = (params["units"][0]["l0"]["mixer"]["lambda_param"]
-             if "units" in params else params["layers"][0]["attn"]["wq"])
-    return [params["embed"], params["lm_head"], first]
+    head (vocab-parallel; Mamba-2 ties them), a first-layer weight (the
+    hybrid's lambda, replicated over data, its gradient summed over the
+    batch's ranks; Mamba-2's in-projection), and an MoE layer's expert
+    weights (split over model)."""
+    if "units" in params:
+        first = params["units"][0]["l0"]["mixer"]["lambda_param"]
+    elif "mixer" in params["layers"][0]:
+        first = params["layers"][0]["mixer"]["w_in"]
+    else:
+        first = params["layers"][0]["attn"]["wq"]
+    out = [params["embed"], params.get("lm_head"), first]
+    if "units" not in params and "attn" in params["layers"][0]:
+        out.append(params["layers"][0]["attn"].get("wk"))
+    if "moe" in params.get("layers", [{}])[0]:
+        out.append(params["layers"][0]["moe"]["w_gate"])
+    return [p for p in out if p is not None]
 
 
 def first_kv(cache):
-    return (cache["units"][0]["l2"].k if "units" in cache
-            else cache["scanned"].k)
+    if "units" in cache:
+        return cache["units"][0]["l2"].k
+    if not isinstance(cache, dict):
+        return cache.ssm
+    scanned = cache["scanned"]
+    return scanned.c_kv if hasattr(scanned, "c_kv") else scanned.k
 
 
 def _free_port():
@@ -371,50 +424,61 @@ def _free_port():
 
 
 def test_sharded_model_matches_plain_on_four_gloo_ranks(tmp_path):
+    check_on_four_gloo_ranks(tmp_path, CONFIGS)
+
+
+def test_sharded_ssm_and_one_row_mla_match_plain_on_four_gloo_ranks(
+        tmp_path):
+    check_on_four_gloo_ranks(tmp_path, MORE_CONFIGS)
+
+
+def check_on_four_gloo_ranks(tmp_path, names):
     out, port = str(tmp_path / "ranks.json"), _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-c", _WORKER, str(r), "4", str(port), out,
-         os.path.join(REPO, "src"), os.path.dirname(__file__)], env=env,
+         os.path.join(REPO, "src"), os.path.dirname(__file__),
+         ",".join(names)], env=env,
         stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(4)]
     errs = [p.communicate(timeout=120)[1] for p in procs]
     assert all(p.returncode == 0 for p in procs), errs[0][-3000:]
     with open(out) as f:
         got = json.load(f)
-    assert sorted(got) == sorted(CONFIGS)
+    assert sorted(got) == sorted(names)
     for name, res in got.items():
-        cfg = config(name)
+        cfg, B = config(name), BATCH.get(name, 4)
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0))
         for p in tree_tensors(params):
             p.requires_grad_(True)
         rng = np.random.default_rng(0)
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16),
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 16),
                                              dtype=np.int32))
-        labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16),
+        labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 16),
                                                dtype=np.int32))
-        loss = model.loss(params, toks, labels)
-        loss.backward()
-        np.testing.assert_allclose(res["loss"], loss.item(), rtol=FP32,
-                                   atol=FP32)
-        for i, (got_grad, p) in enumerate(zip(res["grads"],
-                                              watched(params))):
-            np.testing.assert_allclose(got_grad, p.grad.numpy(), rtol=FP32,
-                                       atol=FP32, err_msg=f"{name} {i}")
-        cache = model.init_cache(4, 32, device="cpu")
+        if name not in DECODE_ONLY:
+            loss = model.loss(params, toks, labels)
+            loss.backward()
+            np.testing.assert_allclose(res["loss"], loss.item(), rtol=FP32,
+                                       atol=FP32)
+            for i, (got_grad, p) in enumerate(zip(res["grads"],
+                                                  watched(params))):
+                np.testing.assert_allclose(got_grad, p.grad.numpy(),
+                                           rtol=FP32, atol=FP32,
+                                           err_msg=f"{name} {i}")
+        cache = model.init_cache(B, 32, device="cpu")
         with torch.no_grad():
             for step in range(3):
                 lg, cache = model.decode_step(
                     params, toks[:, step:step + 1], cache,
-                    torch.full((4,), step, dtype=torch.int32))
+                    torch.full((B,), step, dtype=torch.int32))
                 np.testing.assert_allclose(res["decode"][step], lg.numpy(),
                                            rtol=FP32, atol=FP32)
         # heads over model where they divide, else the slots (the hybrid's
-        # MQA ring too, a list element with no layer axis)
-        lead = 0 if name == "hybrid" else 1
-        model_dim = ["Shard", lead + (2 if name == "dense" else 1)]
-        assert res["cache_placements"] == [["Shard", lead], model_dim]
+        # MQA ring too, a list element with no layer axis); MLA's latents
+        # over their rank; Mamba-2's state over its layers on data
+        assert res["cache_placements"] == CACHE_PLACEMENTS[name]
 
 
 def _one_rank_group():

@@ -1,0 +1,122 @@
+"""Each placed step of the port splits its work over the production meshes
+as the JAX package's partitioned program does.
+
+``tests/golden_dryrun_jax.json`` is the JAX package's own dry-run of every
+(arch x shape x mesh), made on the CPU by
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python -m repro.launch.dryrun --all \\
+        --mesh both --cost-extrapolate --out tests/golden_dryrun_jax.json
+
+Its ``extrapolated`` block counts every layer (XLA's own count covers a
+scan body once). For one (arch, shape, mesh) or more of each model family,
+the port's dry-run (``repro_torch.launch.dryrun.run_one``, meta tensors
+over a ``fake`` group as wide as the mesh) must count at most
+``dryrun.JAX_FLOPS_BOUND`` (1.25) x the JAX package's FLOPs a rank and at
+most 2 x its collective bytes, on the
+JAX package's argument bytes (the rules place the same shards) but for
+the two departures ``PERF.md`` names. The FLOPs a rank are matmul FLOPs
+in the port and every op's in XLA, so the port may count fewer.
+
+recurrentgemma-9b's train and prefill are left out: its plain RG-LRU walks
+time token by token, 9-14 minutes a step on meta tensors.
+"""
+import json
+import os
+
+import pytest
+import torch.distributed as dist
+
+from repro_torch.configs import get_config, get_shape
+from repro_torch.launch import dryrun
+from repro_torch.models import build_model
+from repro_torch.models.common import init_shapes
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden_dryrun_jax.json")
+COLLECTIVE_BOUND = 2.0
+MODEL_WIDTH = 16  # the production meshes' "model" axis
+
+ROWS = [
+    ("tinyllama-1.1b", "train_4k", "2x16x16"),
+    ("tinyllama-1.1b", "prefill_32k", "16x16"),
+    ("mamba2-1.3b", "decode_32k", "16x16"),
+    ("deepseek-v2-lite-16b", "prefill_32k", "16x16"),
+    ("whisper-medium", "prefill_32k", "16x16"),
+    ("recurrentgemma-9b", "decode_32k", "2x16x16"),
+    ("chameleon-34b", "decode_32k", "16x16"),
+]
+
+
+def golden():
+    with open(GOLDEN) as f:
+        data = json.load(f)
+    return {(r["arch"], r["shape"], r["mesh"]): r for r in data["results"]}
+
+
+@pytest.fixture(autouse=True)
+def no_group_left():
+    assert not dist.is_initialized()
+    yield
+    assert not dist.is_initialized()
+
+
+def test_golden_covers_every_combination():
+    """The reference holds all 80 combinations, each with its
+    depth-extrapolated block, and none failed."""
+    with open(GOLDEN) as f:
+        data = json.load(f)
+    assert data["failures"] == []
+    rows = golden()
+    assert len(rows) == 80 and set(ROWS) <= set(rows)
+    for r in rows.values():
+        e = r["extrapolated"]
+        assert e["flops"] > 0 and "total" in e["collective_bytes"]
+        assert r["devices"] == (256 if r["mesh"] == "16x16" else 512)
+
+
+def _leaves(tree, name):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == name:
+                yield v
+            else:
+                yield from _leaves(v, name)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v, name)
+
+
+def port_only_bytes(arch, shape, devices):
+    """A decode step's argument bytes a rank that the port holds beyond the
+    JAX package's: mamba2's ``pos`` (B,) int32, which its step never reads
+    and XLA drops, and recurrentgemma's RG-LRU gate matrices, fp32 in the
+    port (``GATES_FP32``) and bf16 in the JAX package, 2 B more an
+    element, split over "model". Any other model's, none."""
+    if arch not in ("mamba2-1.3b", "recurrentgemma-9b"):
+        return 0
+    sh = get_shape(shape)
+    assert sh.kind == "decode", "counted for a decode step only"
+    if arch == "mamba2-1.3b":
+        return sh.global_batch // (devices // MODEL_WIDTH) * 4
+    params = init_shapes(build_model(get_config(arch)))
+    gates = [w for name in ("w_input_gate", "w_rec_gate")
+             for w in _leaves(params, name)]
+    return sum(w.numel() for w in gates) * 2 // MODEL_WIDTH
+
+
+@pytest.mark.parametrize("arch,shape,mesh", ROWS)
+def test_placed_step_splits_as_the_jax_package(arch, shape, mesh):
+    ref = golden()[(arch, shape, mesh)]
+    r = dryrun.run_one(arch, shape, multi_pod=mesh == "2x16x16",
+                       verbose=False)
+    assert r["mesh"] == mesh and r["devices"] == ref["devices"]
+    ext = ref["extrapolated"]
+    assert r["flops"] <= dryrun.JAX_FLOPS_BOUND * ext["flops"], (
+        r["flops"], ext["flops"])
+    coll, ref_coll = (r["collective_bytes"]["total"],
+                      ext["collective_bytes"]["total"])
+    assert coll <= COLLECTIVE_BOUND * ref_coll, (coll, ref_coll)
+    assert r["memory"]["argument_size_bytes"] == (
+        ref["memory"]["argument_size_bytes"]
+        + port_only_bytes(arch, shape, r["devices"]))
+    # a rank's share of the whole step: at least an even split
+    assert r["flops"] * r["devices"] >= r["flops_global"]
