@@ -17,7 +17,9 @@ batch on the data axes and replicated over "model".
   reduced once by an all-reduce. No weight is gathered.
 * ``split_dim`` and ``merge_dims``: a split of heads viewed shard by
   shard; ``divide_dim``: a split that does not divide the heads,
-  gathered.
+  gathered; ``kv_heads``: k and v of a whole sequence gathered only among
+  the ranks whose query heads read each kv head (``kv_cache_layout``
+  takes a prefill's cache out of that form).
 * ``local_attention``: attention on each rank's rows and query heads; each
   rank takes the kv heads its query heads read. Query heads that the
   model axis does not divide take the JAX partitioner's padded share,
@@ -30,11 +32,13 @@ batch on the data axes and replicated over "model".
 * ``local_conv``, ``moe_experts``, ``ssd_heads``, ``rms_norm``: the
   depthwise conv on each rank's channels, the dense expert dispatch on
   each rank's experts, the SSD on each rank's heads, an RMSNorm over a
-  split dim.
+  split dim; ``ssd_parts``: Mamba-2's fused columns exchanged so that
+  each rank holds what its heads read.
 * ``vocab_parallel_nll``: the cross entropy of logits sharded over the
   vocab (``logits_pspec``), Megatron's vocab-parallel form: three
   all-reduces of (B, S) over the vocab's mesh dims; the logits are never
-  gathered, and the backward pass is local.
+  gathered, and the backward pass is local. ``rows_nll``: that of logits
+  whose vocab is whole, on each rank's rows.
 * ``embedding``: the vocab-parallel lookup, ``stack_layers``: a prefill's
   per-layer caches stacked shard by shard, ``cache_layout``: a prefill's
   cache placed as ``cache_pspecs`` places a decode cache, ``write_slots``:
@@ -603,123 +607,167 @@ def moe_experts(fn, x: DTensor, combine: DTensor, w_gate, w_in, w_out):
                         *(_grad_to(w) for w in ws)))
 
 
-def ssd_heads(fn, n_heads: int, z, xbc, dt, dt_bias, a_log, d_skip,
+def ssd_heads(fn, n_heads: int, z, x, b, c, dt, dt_bias, a_log, d_skip,
               ssm=None):
-    """``fn(lo, hi, z, xbc, dt, dt_bias, a_log, d_skip, ssm)`` -> (y, final
-    state): the SSD over heads [lo, hi) of ``n_heads`` (y (B, S, (hi - lo)
-    * P), the state (B, hi - lo, P, N)), on each rank's rows and its
-    heads over "model" (all of them where the model axis does not divide
-    ``n_heads``). z, xbc and dt come whole over "model" and each rank takes
-    its heads' columns; ``ssm``, a decode step's state, is split over its
-    heads as ``cache_pspecs`` places it."""
-    mesh = _mesh_of(z, xbc)
-    z, xbc, dt = (_as_dtensor(t, mesh) for t in (z, xbc, dt))
+    """``fn(z, x, b, c, dt, dt_bias, a_log, d_skip, ssm)`` -> (y, final
+    state): the SSD of the heads that z (B, S, h * P), x (B, S, h * P) and
+    dt (B, S, h) hold, and of the small per-head vectors given for them
+    (y (B, S, h * P), the state (B, h, P, N)), run on each rank's rows and
+    its heads over "model" (all of them where the model axis does not
+    divide ``n_heads``). b and c, every head's input and output
+    projections, come whole; their gradient leaves as each rank's partial
+    sum, for ``ssd_parts`` to add up. ``ssm``, a decode step's state, is
+    split over its heads as ``cache_pspecs`` places it."""
+    mesh = _mesh_of(z, x)
+    z, x, b, c, dt = (_as_dtensor(t, mesh) for t in (z, x, b, c, dt))
     small = [_as_dtensor(t, mesh) for t in (dt_bias, a_log, d_skip)]
     rows = _rows(z, z.ndim - 1)
     hd = _model_dim(mesh)
     if hd is not None and (n_heads % mesh.size(hd)
                            or _is_shard(z.placements[hd], 0)):
         hd = None
-    if hd is None:
-        lo, hi = 0, n_heads
-    else:
-        lo, hi = _offset(mesh, [hd], n_heads)
-        hi += lo
+    lo, hi = 0, n_heads
+    if hd is not None:
+        lo, n = _offset(mesh, [hd], n_heads)
+        hi = lo + n
     lanes = [Shard(z.ndim - 1) if i == hd else r for i, r in enumerate(rows)]
     state = [Shard(1) if i == hd else r for i, r in enumerate(rows)]
     whole = [Replicate()] * mesh.ndim
-    grad_whole = [_partial(mesh, i) if i == hd else r
-                  for i, r in enumerate(rows)]
+    bc_grad = [_partial(mesh, i) if i == hd else r
+               for i, r in enumerate(rows)]
     p_grad = [(_partial(mesh, i) if _is_shard(r) or i == hd
                else Replicate()) for i, r in enumerate(rows)]
 
-    def run(z_, xbc_, dt_, b_, a_, d_, ssm_):
-        return fn(lo, hi, z_, xbc_, dt_, b_, a_, d_, ssm_)
+    def run(z_, x_, b_, c_, dt_, bias_, a_, d_, ssm_):
+        return fn(z_, x_, b_, c_, dt_, bias_[lo:hi], a_[lo:hi], d_[lo:hi],
+                  ssm_)
 
-    ins = (rows, rows, rows, whole, whole, whole,
+    ins = (lanes, lanes, rows, rows, lanes, whole, whole, whole,
            state if ssm is not None else None)
-    grads = (grad_whole, grad_whole, grad_whole, p_grad, p_grad, p_grad,
+    grads = (lanes, lanes, bc_grad, bc_grad, lanes, p_grad, p_grad, p_grad,
              ins[-1])
     ssm = _as_dtensor(ssm, mesh) if ssm is not None else None
-    # z, xbc and dt leave their partial sums to the reduce-scatters that
-    # made them whole (``gather_parts``, ``gather_model``)
+    # z, x, b, c and dt leave their gradients to the exchange that made
+    # them (``ssd_parts``)
     return _local_map(run, (lanes, state), ins, grads, mesh)(
-        z, xbc, dt, *(_grad_to(t) for t in small), ssm)
+        z, x, b, c, dt, *(_grad_to(t) for t in small), ssm)
 
 
-class _GatherParts(torch.autograd.Function):
-    """``gather_parts``: the all-gather and the cut in the forward pass; in
-    the backward pass each part's gradient goes into a whole-width buffer
-    as a partial sum (a partial sum as it is, a slice at the rank's
-    offset, a whole gradient on the first rank only), reduce-scattered
-    back onto ``t``'s split: one reduce-scatter, where a gradient a part
-    would take an all-reduce."""
+def _exchange_plan(sizes: Tuple[int, ...], split: Tuple[int, ...], m: int,
+                   c: int):
+    """Rank ``c``'s part of ``_Exchange``: the columns of its shard to send,
+    one block a rank in rank order (local indices), each block's length,
+    and the lengths it receives from each rank. Rank r is sent the columns
+    of ``t`` that it takes: each part of ``split`` its r-th of m even
+    slices, each other part whole."""
+    w = sum(sizes) // m
+
+    def takes(r):
+        cols, o = [], 0
+        for i, n in enumerate(sizes):
+            lo, hi = ((o + r * (n // m), o + (r + 1) * (n // m))
+                      if i in split else (o, o + n))
+            cols.append((lo, hi))
+            o += n
+        return cols
+
+    def inside(spans, s):
+        return [(max(lo, s * w), min(hi, (s + 1) * w)) for lo, hi in spans
+                if max(lo, s * w) < min(hi, (s + 1) * w)]
+
+    send = [[j - c * w for lo, hi in inside(takes(r), c)
+             for j in range(lo, hi)] for r in range(m)]
+    recv = [sum(hi - lo for lo, hi in inside(takes(c), s)) for s in range(m)]
+    return send, recv
+
+
+class _Exchange(torch.autograd.Function):
+    """``ssd_parts``' move: one all-to-all over "model" sends each rank the
+    columns of ``t`` (split evenly on its last dim there) that it takes,
+    and the backward pass sends each column's gradients back to the rank
+    that holds it, added up there one sender after another (B and C, which
+    every rank takes, gather a partial sum from each)."""
 
     @staticmethod
     def forward(ctx, t, hd, sizes, split):
         mesh, last = t.device_mesh, t.ndim - 1
-        c, m = mesh.get_coordinate()[hd], mesh.size(hd)
-        ctx.meta = (t, hd, sizes, split)
-        full = funcol.all_gather_tensor(t.to_local(), gather_dim=last,
-                                        group=(mesh, hd))
-        outs = []
-        for i, (part, n) in enumerate(zip(torch.split(full, sizes, last),
-                                          sizes)):
+        m, c = mesh.size(hd), mesh.get_coordinate()[hd]
+        send, recv = _exchange_plan(sizes, split, m, c)
+        local = t.to_local()
+        idx = torch.tensor([j for block in send for j in block],
+                           dtype=torch.long, device=local.device)
+        ctx.meta = (t, hd, sizes, split, send, recv)
+        cols = local.movedim(last, 0).index_select(0, idx)
+        got = funcol.all_to_all_single(cols, recv, [len(b) for b in send],
+                                       group=(mesh, hd))
+        got = got.movedim(0, last)
+        outs, o = [], 0
+        for i, n in enumerate(sizes):
+            k = n // m if i in split else n
             placements = list(t.placements)
             placements[hd] = Shard(last) if i in split else Replicate()
-            if i in split:
-                part = part.narrow(last, c * (n // m), n // m)
             shape = t.shape[:last] + (n,)
             outs.append(DTensor.from_local(
-                part.contiguous(), mesh, placements, run_check=False,
-                shape=torch.Size(shape), stride=_contiguous_strides(shape)))
+                got.narrow(last, o, k).contiguous(), mesh, placements,
+                run_check=False, shape=torch.Size(shape),
+                stride=_contiguous_strides(shape)))
+            o += k
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *grads):
-        t, hd, sizes, split = ctx.meta
+        t, hd, sizes, split, send, recv = ctx.meta
         mesh, last = t.device_mesh, t.ndim - 1
-        c, m = mesh.get_coordinate()[hd], mesh.size(hd)
-        rows = t.to_local().shape[:last]
+        m, c = mesh.size(hd), mesh.get_coordinate()[hd]
+        local = t.to_local()
         parts = []
-        for g, n in zip(grads, sizes):
+        for i, (g, n) in enumerate(zip(grads, sizes)):
+            k = n // m if i in split else n
             if g is None:
-                parts.append(t.to_local().new_zeros(rows + (n,)))
+                parts.append(local.new_zeros(local.shape[:last] + (k,)))
                 continue
             target = list(t.placements)
-            target[hd] = g.placements[hd]
-            local = g.redistribute(mesh, target).to_local()
-            p = g.placements[hd]
-            if _is_shard(p):
-                whole = local.new_zeros(rows + (n,))
-                whole.narrow(last, c * (n // m), n // m).copy_(local)
-                local = whole
-            elif not isinstance(p, Partial) and c:
-                local = torch.zeros_like(local)
-            parts.append(local)
-        grad = funcol.reduce_scatter_tensor(torch.cat(parts, last), "sum",
-                                            scatter_dim=last,
-                                            group=(mesh, hd))
+            target[hd] = (Shard(last) if i in split else
+                          g.placements[hd] if isinstance(g.placements[hd],
+                                                         Partial)
+                          else Replicate())
+            g_local = g.redistribute(mesh, target).to_local()
+            if isinstance(target[hd], Replicate) and c:
+                # a whole gradient, the same on every rank: sent once
+                g_local = torch.zeros_like(g_local)
+            parts.append(g_local)
+        cols = torch.cat(parts, last).movedim(last, 0).contiguous()
+        back = funcol.all_to_all_single(cols, [len(b) for b in send], recv,
+                                        group=(mesh, hd))
+        grad, o = torch.zeros_like(local), 0
+        for block in send:
+            if block:
+                grad.index_add_(last, torch.tensor(block, device=grad.device),
+                                back[o:o + len(block)].movedim(0, last))
+            o += len(block)
         return (DTensor.from_local(grad, mesh, t.placements, run_check=False,
                                    shape=t.shape, stride=t.stride()),
                 None, None, None)
 
 
-def gather_parts(t: DTensor, sizes: Sequence[int]):
-    """``torch.split(t, sizes, -1)`` of ``t`` split on its last dim over
-    "model" where that split does not follow the parts (Mamba-2's fused
-    in-projection, [z, xBC, dt]): ``t`` gathered whole (an all-gather),
-    each part whole over "model" but those "model" divides, which keep
-    each rank's slice (xBC, on the depthwise conv's channel split). The
-    gradient comes back by one reduce-scatter. Without a model split, the
-    plain split on each rank's rows."""
+def ssd_parts(t: DTensor, sizes: Sequence[int], split: Sequence[int],
+              n_heads: int):
+    """``torch.split(t, sizes, -1)`` of a Mamba-2 block's fused columns
+    ([z, xBC, dt] of the in-projection, [x, B, C] of the conv's output),
+    each part of ``split`` split evenly over "model" where the model axis
+    divides it and ``n_heads`` (z, x and dt by heads; xBC on the conv's
+    channel split, as ``conv_w``), each other part whole there (B and C, which every head
+    reads), where ``t`` is split over "model" on its last dim (a
+    column-parallel product, or the conv's channels): one all-to-all
+    (``_Exchange``) moves to each rank the columns it takes and no other.
+    Otherwise, the plain split on each rank's shard."""
     mesh = t.device_mesh
     hd = _model_dim(mesh)
     if hd is None or not _is_shard(t.placements[hd], t.ndim - 1):
         return torch.split(t, list(sizes), dim=-1)
     m = mesh.size(hd)
-    split = tuple(i for i, n in enumerate(sizes) if i == 1 and n % m == 0)
-    return _GatherParts.apply(t, hd, tuple(sizes), split)
+    split = tuple(i for i in split if n_heads % m == 0 and sizes[i] % m == 0)
+    return _Exchange.apply(t, hd, tuple(sizes), split)
 
 
 def gather_model(t: DTensor) -> DTensor:
@@ -731,6 +779,136 @@ def gather_model(t: DTensor) -> DTensor:
     target = list(t.placements)
     target[hd] = Replicate()
     return t.redistribute(mesh, target)
+
+
+def _neighbours(mesh, hd: int, r: int):
+    """The process group of this rank and the r - 1 others of its run of r
+    on mesh dim ``hd`` (coordinates r g .. r g + r - 1 there, the other
+    coordinates this rank's). Every rank makes every such group once a
+    mesh (a collective), and the mesh keeps them."""
+    import torch.distributed as dist
+
+    groups = mesh.__dict__.setdefault("_runs_of", {})
+    if (hd, r) not in groups:
+        lines = mesh.mesh.movedim(hd, -1).reshape(-1, mesh.size(hd))
+        runs = [line[g:g + r].tolist() for line in lines
+                for g in range(0, mesh.size(hd), r)]
+        groups[(hd, r)] = dist.new_subgroups_by_enumeration(runs)[0]
+    return groups[(hd, r)]
+
+
+class _GatherKV(torch.autograd.Function):
+    """``kv_heads``' gather: each rank's columns of the kv head its query
+    heads read, all-gathered among the r ranks that hold that head's
+    parts; the gradient reduce-scattered back among them."""
+
+    @staticmethod
+    def forward(ctx, t, hd, r, head_dim):
+        mesh, last = t.device_mesh, t.ndim - 1
+        group = _neighbours(mesh, hd, r)
+        ctx.meta = (t, hd, group)
+        head = funcol.all_gather_tensor(t.to_local(), gather_dim=last,
+                                        group=group)
+        placements = list(t.placements)
+        placements[hd] = Shard(2)
+        shape = t.shape[:last] + (mesh.size(hd), head_dim)
+        return DTensor.from_local(head.unsqueeze(2), mesh, placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=_contiguous_strides(shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        t, hd, group = ctx.meta
+        target = list(t.placements)
+        target[hd] = Shard(2)
+        g = grad.redistribute(grad.device_mesh, target).to_local()
+        part = funcol.reduce_scatter_tensor(g.squeeze(2).contiguous(), "sum",
+                                            scatter_dim=t.ndim - 1,
+                                            group=group)
+        return (DTensor.from_local(part, t.device_mesh, t.placements,
+                                   run_check=False, shape=t.shape,
+                                   stride=t.stride()), None, None, None)
+
+
+def kv_heads(t: DTensor, count: int, head_dim: int, n_query: int) -> DTensor:
+    """k or v (B, S, count * head_dim), a column-parallel product, viewed
+    as its ``count`` kv heads for an attention over ``n_query`` query
+    heads: ``split_dim``'s view, but where "model" (m) divides the query
+    heads and is a multiple r of 1 < ``count`` kv heads (so that the H / m
+    query heads of a rank read one kv head, whose columns its r
+    neighbours hold), each rank all-gathers that head among those r ranks
+    alone, as the JAX package's partitioner does, and not every head over
+    "model". The result is then the kv heads each repeated r times
+    (B, S, m, head_dim), one a rank over "model"; an attention over it
+    reads what it would of the ``count`` heads, and ``kv_cache_layout``
+    takes the repeats back out."""
+    mesh = t.device_mesh
+    hd = _model_dim(mesh)
+    if hd is not None and _is_shard(t.placements[hd], t.ndim - 1):
+        m = mesh.size(hd)
+        if 1 < count < m and m % count == 0 and n_query % m == 0:
+            return _GatherKV.apply(t, hd, m // count, head_dim)
+    return split_dim(t, 2, (count, head_dim))
+
+
+class _KVSlots(torch.autograd.Function):
+    """``kv_cache_layout``'s move of repeated kv heads (B, T, m, D), one a
+    rank over "model", to the cache's (B, T, count, D) with its slots split
+    there: one all-to-all in which each rank sends each slot block of its
+    head to the rank that holds the block, where its run's ranks share the
+    sending (rank c sends to the ranks whose coordinate is c modulo r), so
+    every block moves once. The gradient goes back the same way."""
+
+    @staticmethod
+    def forward(ctx, t, hd, count):
+        mesh = t.device_mesh
+        m, c = mesh.size(hd), mesh.get_coordinate()[hd]
+        r = m // count
+        dests = [d for d in range(m) if d % r == c % r]
+        ins = [int(d % r == c % r) for d in range(m)]
+        ctx.meta = (t, hd, dests, ins)
+        local = t.to_local()[:, :, 0]                    # (B, T, D)
+        blocks = local.unflatten(1, (m, -1)).movedim(1, 0)[dests]
+        got = funcol.all_to_all_single(blocks, ins, ins, group=(mesh, hd))
+        placements = list(t.placements)
+        placements[hd] = Shard(1)
+        shape = t.shape[:2] + (count, t.shape[3])
+        return DTensor.from_local(got.permute(1, 2, 0, 3).contiguous(), mesh,
+                                  placements, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=_contiguous_strides(shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        t, hd, dests, ins = ctx.meta
+        mesh = t.device_mesh
+        target = list(t.placements)
+        target[hd] = Shard(1)
+        g = grad.redistribute(mesh, target).to_local()   # (B, T/m, count, D)
+        back = funcol.all_to_all_single(g.permute(2, 0, 1, 3).contiguous(),
+                                        ins, ins, group=(mesh, hd))
+        local = t.to_local()
+        out = local.new_zeros(local.shape[:2] + local.shape[3:])
+        out.unflatten(1, (mesh.size(hd), -1))[:, dests] = back.movedim(0, 1)
+        return (DTensor.from_local(out.unsqueeze(2), mesh, t.placements,
+                                   run_check=False, shape=t.shape,
+                                   stride=t.stride()), None, None)
+
+
+def kv_cache_layout(t: DTensor, count: int) -> DTensor:
+    """A prefill's k or v cache (B, T, heads, D) of ``count`` kv heads,
+    placed over "model" as ``cache_layout`` places it. Where ``t`` holds
+    them repeated (``kv_heads``: m heads, one a rank), the repeats are
+    taken out: the slots split over "model" where it divides them
+    (``_KVSlots``), else each head whole on every rank."""
+    if t.shape[2] == count:
+        return cache_layout(t, 2)
+    mesh = t.device_mesh
+    hd = _model_dim(mesh)
+    m = mesh.size(hd)
+    if t.shape[1] % m == 0:
+        return _KVSlots.apply(t, hd, count)
+    return gather_model(t)[:, :, ::m // count]
 
 
 def cache_layout(t: DTensor, dim: int) -> DTensor:
@@ -836,6 +1014,24 @@ def unstack(t: DTensor) -> List[DTensor]:
             for i in range(t.shape[0])]
 
 
+def _move_split(t: DTensor, i: int, dst: int) -> DTensor:
+    """``t``, split over mesh dim ``i`` on tensor dim ``dst`` instead of the
+    one it is split on there: one all-to-all of each rank's shard, in
+    chunks of ``dst``, its output one buffer of the shard's size (as NCCL
+    runs it; DTensor's own move gathers the whole dim on a CPU mesh)."""
+    mesh, src = t.device_mesh, t.placements[i].dim
+    local = t.to_local()
+    chunks = local.unflatten(dst, (mesh.size(i), -1)).movedim(dst, 0)
+    got = funcol.all_to_all_single(chunks.contiguous(), None, None,
+                                   group=(mesh, i))
+    # chunk s is rank s's part of dim ``src``
+    local = got.movedim(0, src).flatten(src, src + 1)
+    placements = list(t.placements)
+    placements[i] = Shard(dst)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
 def unsplit_layers(t: DTensor, lanes: int) -> DTensor:
     """A stack (L, B, ...) whose layers are split over the data axes (the
     placement ``cache_pspecs`` gives a Mamba-2 state, whose name marks no
@@ -851,8 +1047,10 @@ def unsplit_layers(t: DTensor, lanes: int) -> DTensor:
             and t.shape[lanes] % mesh.size(hd) == 0):
         target[hd] = Shard(lanes)
         t = t.redistribute(mesh, target)
-    target = [Shard(1) if _is_shard(p, 0) else p for p in target]
-    return t.redistribute(mesh, target)
+    for i, p in enumerate(t.placements):
+        if _is_shard(p, 0):
+            t = _move_split(t, i, 1)
+    return t
 
 
 def write_back(stack: DTensor, work: DTensor) -> None:
@@ -861,12 +1059,12 @@ def write_back(stack: DTensor, work: DTensor) -> None:
     all-to-all), then, layer by layer, the lanes gathered (an all-gather)
     where ``stack`` holds them whole."""
     mesh = stack.device_mesh
-    target = [p if _is_shard(p, 0) else q
-              for p, q in zip(stack.placements, work.placements)]
-    local = work.redistribute(mesh, target).to_local()
+    for i, p in enumerate(stack.placements):
+        if _is_shard(p, 0):
+            work = _move_split(work, i, 0)
     gather = [(i, q.dim - 1) for i, (p, q) in
-              enumerate(zip(stack.placements, target)) if p != q]
-    out = stack.to_local()
+              enumerate(zip(stack.placements, work.placements)) if p != q]
+    local, out = work.to_local(), stack.to_local()
     for j in range(local.shape[0]):
         layer = local[j]
         for i, dim in gather:
@@ -962,6 +1160,27 @@ def vocab_parallel_nll(logits: DTensor, labels: torch.Tensor) -> DTensor:
                                            if mesh.size(d) > 1])
     return DTensor.from_local(nll, mesh, rows, run_check=False,
                               shape=labels.shape, stride=labels.stride())
+
+
+def rows_nll(logits: DTensor, labels: torch.Tensor) -> DTensor:
+    """The per-token loss (B, S) of logits (B, S, V) whose vocab no mesh dim
+    of size > 1 splits (``common.token_nll``), on each rank's own rows: the
+    logsumexp and the label's logit from its local (B_local, S, V) logits,
+    the result split over the batch as the logits are, the backward pass
+    local. DTensor's rule for ``gather`` would make the backward's
+    scatter buffer of the global (B, S, V) shape on every rank. Placements
+    on a mesh dim of size 1 are kept as they are: nothing moves."""
+    from repro_torch.models.common import token_nll
+
+    mesh = logits.device_mesh
+    out = [Shard(0) if _is_shard(p, 0) else Replicate()
+           for p in logits.placements]
+    labels = _as_dtensor(labels, mesh)
+    lab_in = [q if mesh.size(i) == 1 else o
+              for i, (q, o) in enumerate(zip(labels.placements, out))]
+    lg_in = list(logits.placements)
+    return _local_map(token_nll, out, (lg_in, lab_in), (lg_in, lab_in),
+                      mesh)(logits, labels)
 
 
 def write_slots(cache: DTensor, slot: torch.Tensor,

@@ -75,6 +75,10 @@ from repro_torch.training.train_loop import make_train_step
 # a placed step's FLOPs a rank over the JAX package's partitioned
 # program's (``repro.launch.dryrun --cost-extrapolate``), at most
 JAX_FLOPS_BOUND = 1.25
+# a placed step's ``temp_size_bytes`` a rank over the JAX package's, at
+# most (the port's are eager live bytes, unfused, where XLA's buffers are
+# assigned after fusion)
+JAX_TEMP_BOUND = 1.5
 
 _DTYPE_BYTES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2, "s64": 8, "s32": 4,
                 "u64": 8, "u32": 4, "s16": 2, "u16": 2, "s8": 1, "u8": 1,

@@ -177,11 +177,21 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
-def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, num_kv: int):
+def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, num_kv: int, *,
+                 kv_read: bool = False):
+    """q (B,S,H,D), k and v (B,S,num_kv,D). With ``kv_read``, placed k and v
+    may come as the kv heads that each rank reads, repeated
+    (``distributed.parallel.kv_heads``): what a whole sequence's attention
+    takes, where a decode step writes whole heads into its cache."""
     q, k, v = matmul(x, *(p[n].to(x.dtype) for n in ("wq", "wk", "wv")))
     q = split_dim(q, 2, (cfg.num_heads, cfg.head_dim))
-    k = split_dim(k, 2, (num_kv, cfg.head_dim))
-    v = split_dim(v, 2, (num_kv, cfg.head_dim))
+    if kv_read and is_dtensor(k):
+        from repro_torch.distributed import parallel
+        k, v = (parallel.kv_heads(t, num_kv, cfg.head_dim, cfg.num_heads)
+                for t in (k, v))
+    else:
+        k = split_dim(k, 2, (num_kv, cfg.head_dim))
+        v = split_dim(v, 2, (num_kv, cfg.head_dim))
     if cfg.use_qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -262,7 +272,7 @@ def attention_forward(p, cfg: ModelConfig, x: torch.Tensor,
     ``rope``: the tables of the tokens' positions (``model_rope``)."""
     num_kv = cfg.num_kv_heads if num_kv is None else num_kv
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, num_kv)
+    q, k, v = _project_qkv(p, cfg, x, num_kv, kv_read=True)
     if cfg.use_rope:
         q = apply_rope(q, rope)
         k = apply_rope(k, rope)
@@ -280,7 +290,7 @@ def attention_forward(p, cfg: ModelConfig, x: torch.Tensor,
                             use_pallas=cfg.use_pallas)
     out = merge_dims(out, 2)
     y = matmul(out, p["wo"].to(out.dtype))
-    cache = _cache_from_prefill(cfg, k, v, window, cache_len)
+    cache = _cache_from_prefill(cfg, k, v, window, cache_len, num_kv)
     return y, cache
 
 
@@ -291,7 +301,8 @@ def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def _cache_from_prefill(cfg: ModelConfig, k, v, window: int,
-                        cache_len: Optional[int] = None) -> KVCache:
+                        cache_len: Optional[int] = None,
+                        num_kv: Optional[int] = None) -> KVCache:
     if window or cfg.attention_window:
         w = window or cfg.attention_window
         S = k.shape[1]
@@ -313,7 +324,8 @@ def _cache_from_prefill(cfg: ModelConfig, k, v, window: int,
     if is_dtensor(k):
         # placed as a decode cache: the heads split, or the slots
         from repro_torch.distributed import parallel
-        k, v = parallel.cache_layout(k, 2), parallel.cache_layout(v, 2)
+        num_kv = cfg.num_kv_heads if num_kv is None else num_kv
+        k, v = (parallel.kv_cache_layout(t, num_kv) for t in (k, v))
     return KVCache(k=k, v=v)
 
 

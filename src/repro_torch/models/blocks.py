@@ -257,6 +257,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     S = x.shape[1]
     out = sum(xp[:, i:i + S] * w[i][None, None] for i in range(k))
     new_tail = xp[:, -(k - 1):] if k > 1 else tail
+    if S > 1:
+        # a copy, so that a prefill's state does not hold all of xp
+        new_tail = new_tail.clone()
     return out, new_tail
 
 
@@ -405,16 +408,17 @@ def init_ssd_block(gen: torch.Generator, cfg: ModelConfig):
 
 
 def _ssd_split(p, cfg: ModelConfig, u: torch.Tensor):
+    """(z, xBC, dt) of the fused in-projection. Placed, each rank takes its
+    heads' columns of z and dt and the conv's channel split of xBC
+    (``distributed.parallel.ssd_parts``)."""
     d_in = cfg.d_inner
     G, N, H = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
     zxbcdt = matmul(u, p["w_in"].to(u.dtype))
     sizes = [d_in, d_in + 2 * G * N, H]
     if is_dtensor(zxbcdt):
-        # the fused columns' split over "model" does not follow the parts
         from repro_torch.distributed import parallel
-        return parallel.gather_parts(zxbcdt, sizes)
-    z, xBC, dt = torch.split(zxbcdt, sizes, dim=-1)
-    return z, xBC, dt
+        return parallel.ssd_parts(zxbcdt, sizes, (0, 1, 2), H)
+    return torch.split(zxbcdt, sizes, dim=-1)
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int, use_pallas: bool = False):
@@ -491,19 +495,23 @@ def ssd_block_forward(p, cfg: ModelConfig, u: torch.Tensor,
     z, xBC, dt = _ssd_split(p, cfg, u)
     tail = state.conv if state is not None else None
     xBC, new_tail = _causal_conv(xBC, p["conv_w"].to(xBC.dtype), tail)
-    ssm = state.ssm if state is not None else None
-    small = (p["dt_bias"], p["A_log"], p["D"])
+    GN = cfg.ssm_ngroups * cfg.ssm_state
+    sizes = [cfg.d_inner, GN, GN]
+    rest = (dt, p["dt_bias"], p["A_log"], p["D"],
+            state.ssm if state is not None else None)
     if is_dtensor(xBC):
+        # each rank takes its heads' channels of x, and B and C whole
+        # (every head reads the one group's)
         from repro_torch.distributed import parallel
 
-        def heads(lo, hi, *a):
-            return _ssd_heads(cfg, lo, hi, *a)
-        y, final = parallel.ssd_heads(heads, cfg.ssm_nheads, z,
-                                      parallel.gather_model(xBC), dt,
-                                      *small, ssm)
+        def heads(z_, x_, b_, c_, *a):
+            return _ssd_heads(cfg, z_, *(F.silu(t.float()) for t in
+                                         (x_, b_, c_)), *a)
+        xbc = parallel.ssd_parts(xBC, sizes, (0,), cfg.ssm_nheads)
+        y, final = parallel.ssd_heads(heads, cfg.ssm_nheads, z, *xbc, *rest)
     else:
-        y, final = _ssd_heads(cfg, 0, cfg.ssm_nheads, z, xBC, dt, *small,
-                              ssm)
+        x, Bmat, Cmat = torch.split(F.silu(xBC.float()), sizes, dim=-1)
+        y, final = _ssd_heads(cfg, z, x, Bmat, Cmat, *rest)
     # gated RMSNorm (mamba2 style): norm(y * silu(z)), on the plain path
     # with or without the kernels, as in the JAX package
     y = rms_norm(y.to(u.dtype), p["norm_w"], cfg.norm_eps)
@@ -516,27 +524,21 @@ def ssd_block_forward(p, cfg: ModelConfig, u: torch.Tensor,
     return out, state
 
 
-def _ssd_heads(cfg: ModelConfig, lo: int, hi: int, z, xBC, dt, dt_bias,
-               A_log, D, ssm):
-    """The SSD of heads [lo, hi) of the block's H, and the output gate:
-    (y * silu(z) (B,S,(hi-lo)*P) fp32, the final state (B,hi-lo,P,N)).
-    z (B,S,d_in), xBC (B,S,conv_dim) after the conv and dt (B,S,H) hold
-    every head; ``ssm`` is a decode step's state of these heads (scaled
-    and added into in place) or None."""
-    Bsz, S, _ = xBC.shape
-    d_in = cfg.d_inner
-    G, N, H, P = (cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads,
-                  cfg.ssm_head_dim)
-    xBC = F.silu(xBC.float())
-    x, Bmat, Cmat = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
-    if (lo, hi) != (0, H):
-        x, z = x[..., lo * P:hi * P], z[..., lo * P:hi * P]
-        dt, dt_bias = dt[..., lo:hi], dt_bias[lo:hi]
-        A_log, D = A_log[lo:hi], D[lo:hi]
+def _ssd_heads(cfg: ModelConfig, z, x, Bmat, Cmat, dt, dt_bias, A_log, D,
+               ssm):
+    """The SSD of the heads that z, x (B,S,h*P) and dt (B,S,h) hold, with
+    their dt_bias, A_log and D (h,), and the output gate: (y * silu(z)
+    (B,S,h*P) fp32, the final state (B,h,P,N)). x, and B and C (B,S,G*N),
+    every head's, are the conv's output through silu, fp32; ``ssm`` is a
+    decode step's state of these heads (scaled and added into in place)
+    or None."""
+    Bsz, S, _ = x.shape
+    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_head_dim
+    H = dt.shape[-1]
+    if H != cfg.ssm_nheads:
         # every head reads the one group's B and C (each config's
         # ssm_ngroups is 1)
         assert G == 1, f"a split over heads needs ssm_ngroups 1, not {G}"
-        H = hi - lo
     x = x.reshape(Bsz, S, H, P)
     Bmat = Bmat.reshape(Bsz, S, G, N)
     Cmat = Cmat.reshape(Bsz, S, G, N)

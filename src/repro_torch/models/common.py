@@ -471,18 +471,50 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token loss. logits (B,S,V) of any float dtype, labels (B,S)
     int: the logsumexp minus the label's logit in fp32 (in fp64 for fp64
     logits), averaged over the tokens, or over those ``mask`` weights (at
-    least 1). Logits that are a DTensor split over the vocab take the
-    vocab-parallel form (``distributed.parallel.vocab_parallel_nll``),
-    which gathers no logits."""
+    least 1). Logits that are a DTensor take each rank's rows: split over
+    the vocab, the vocab-parallel form (``distributed.parallel
+    .vocab_parallel_nll``), which gathers no logits; else ``token_nll`` on
+    each rank's own rows (``distributed.parallel.rows_nll``)."""
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     if is_dtensor(logits):
         from repro_torch.distributed import parallel
-        if parallel.vocab_split(logits):
-            return _mean_nll(parallel.vocab_parallel_nll(logits, labels),
-                             mask)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return _mean_nll(lse - ll, mask)
+        nll = (parallel.vocab_parallel_nll if parallel.vocab_split(logits)
+               else parallel.rows_nll)
+        return _mean_nll(nll(logits, labels), mask)
+    return _mean_nll(token_nll(logits, labels), mask)
+
+
+class _TokenNLL(torch.autograd.Function):
+    """``token_nll``, whose backward pass builds the gradient in one buffer
+    (B, S, V): exp(logits - lse) scaled by the incoming gradient, and the
+    label's entry lowered by it. Autograd's own backward of the same ops
+    holds four such buffers (the difference, its exp, the product and the
+    gather's scatter) and sums the two parts after; every entry rounds
+    alike (products and sums of two terms commute exactly). The logsumexp
+    takes ``torch.logsumexp``'s steps as ops of their own, so that the
+    dry-run's memory count sees the buffer it holds (the kernel's own
+    temporaries are not seen)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        m = logits.amax(dim=-1, keepdim=True)
+        m = m.masked_fill(m.abs() == float("inf"), 0.0)
+        lse = torch.sub(logits, m).exp_().sum(dim=-1).log_().add_(m[..., 0])
+        idx = labels.long()[..., None]
+        ll = torch.gather(logits, -1, idx)[..., 0]
+        ctx.save_for_backward(logits, lse, idx)
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, idx = ctx.saved_tensors
+        g = torch.sub(logits, lse[..., None]).exp_().mul_(grad[..., None])
+        return g.scatter_add_(-1, idx, -grad[..., None]), None
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The per-token loss (B, S): the logsumexp minus the label's logit."""
+    return _TokenNLL.apply(logits, labels)
 
 
 def is_dtensor(t: torch.Tensor) -> bool:

@@ -293,8 +293,8 @@ from repro_torch.models import build_model, tree_tensors
 rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
                           int(sys.argv[3]), sys.argv[4])
 sys.path.insert(0, sys.argv[6])
-from test_torch_dryrun import (BATCH, DECODE_ONLY, MESHES, config, first_kv,
-                               watched)
+from test_torch_dryrun import (BATCH, DECODE_ONLY, MESHES, PREFILL, SLOTS,
+                               config, first_kv, watched)
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=rank, world_size=world)
 results = {}
@@ -321,6 +321,14 @@ for name in sys.argv[7].split(","):
         res = {"loss": loss.full_tensor().item(),
                "grads": [p.grad.full_tensor().tolist()
                          for p in watched(placed)]}
+        res["prefill"] = []
+        for slots in SLOTS.get(name, (32,)):
+            with implicit_replication(), torch.no_grad():
+                lg, pre = model.prefill(
+                    placed, with_sharding(toks[:, :PREFILL], bspec, mesh),
+                    max_len=slots)
+            res["prefill"] += [lg.full_tensor().tolist(),
+                               first_kv(pre).full_tensor().tolist()]
     cache = model.init_cache(B, 32, device="cpu")
     cache = with_sharding(cache, cache_pspecs(cache, mesh, B), mesh)
     logits = []
@@ -357,10 +365,13 @@ dist.destroy_process_group()
 # rank's both padding, the output a partial sum), rank 1's heads 2 and 3
 # reading kv heads 0 and 1, two groups; a context-parallel cache
 CONFIGS = ("dense", "dense_mqa", "hybrid", "dense_kv2", "moe")
-MORE_CONFIGS = ("ssm", "moe_row", "dense_h6")
+MORE_CONFIGS = ("ssm", "moe_row", "dense_h6", "dense_v511")
 MESHES = {"dense_kv2": (1, 4), "moe": (1, 4), "dense_h6": (1, 4)}
 BATCH = {"moe_row": 1}
 DECODE_ONLY = ("moe_row",)
+PREFILL = 8                 # tokens a prefill takes, into 32 slots
+# and into 30, which the model axis does not divide (its kv heads whole)
+SLOTS = {"dense_kv2": (32, 30)}
 # the first cache leaf's placements: [data, model]
 CACHE_PLACEMENTS = {
     "dense": [["Shard", 1], ["Shard", 3]],
@@ -371,6 +382,7 @@ CACHE_PLACEMENTS = {
     "ssm": [["Shard", 0], ["Replicate", None]],
     "moe_row": [["Replicate", None], ["Shard", 3]],
     "dense_h6": [["Shard", 1], ["Shard", 2]],
+    "dense_v511": [["Shard", 1], ["Shard", 3]],
 }
 
 
@@ -384,6 +396,8 @@ def config(name):
     if name == "dense_h6":
         return get_config("llama3-3b").reduced().replace(num_heads=6,
                                                          num_kv_heads=2)
+    if name == "dense_v511":
+        return get_config("llama3-3b").reduced().replace(vocab_size=511)
     return get_config("llama3-3b").reduced().replace(
         num_kv_heads={"dense_mqa": 1, "dense_kv2": 2}.get(name, 4))
 
@@ -467,6 +481,16 @@ def check_on_four_gloo_ranks(tmp_path, names):
                 np.testing.assert_allclose(got_grad, p.grad.numpy(),
                                            rtol=FP32, atol=FP32,
                                            err_msg=f"{name} {i}")
+            want = []
+            for slots in SLOTS.get(name, (32,)):
+                with torch.no_grad():
+                    lg, pre = model.prefill(params, toks[:, :PREFILL],
+                                            max_len=slots)
+                want += [lg, first_kv(pre)]
+            assert len(res["prefill"]) == len(want)
+            for got_t, w in zip(res["prefill"], want):
+                np.testing.assert_allclose(got_t, w.numpy(), rtol=FP32,
+                                           atol=FP32, err_msg=name)
         cache = model.init_cache(B, 32, device="cpu")
         with torch.no_grad():
             for step in range(3):

@@ -12,11 +12,12 @@ the golden is the JAX package's ``python -m repro.launch.dryrun --all
 Prints a markdown table, a row an arch and a column a shape, each cell
 16x16 / 2x16x16: F, one rank's FLOPs over the JAX package's extrapolated
 FLOPs a rank; C, the same of the collective bytes; T, one rank's
-``temp_size_bytes``; with BEFORE.json each as before -> after. Then every
-combination whose F exceeds the bound (``JAX_FLOPS_BOUND`` of
+``temp_size_bytes`` over the JAX package's; with BEFORE.json each as
+before -> after. Then the largest F, C and T, every combination whose F
+exceeds ``JAX_FLOPS_BOUND`` or whose T exceeds ``JAX_TEMP_BOUND`` (of
 ``repro_torch.launch.dryrun``, which the tests and ``chip_smoke.py`` hold
-too), every one whose argument bytes differ between the two runs, and the
-largest F and C. CPU counts on meta tensors, not speeds.
+too), and every one whose argument bytes differ between the two runs. CPU
+counts on meta tensors, not speeds.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(HERE, "src"))
-from repro_torch.launch.dryrun import JAX_FLOPS_BOUND  # noqa: E402
+from repro_torch.launch.dryrun import (JAX_FLOPS_BOUND,  # noqa: E402
+                                       JAX_TEMP_BOUND)
 
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 MESHES = ("16x16", "2x16x16")
@@ -48,7 +50,8 @@ def ratios(r, ref):
     return (r["flops"] / ext["flops"],
             r["collective_bytes"]["total"]
             / max(ext["collective_bytes"]["total"], 1.0),
-            r["memory"]["temp_size_bytes"])
+            r["memory"]["temp_size_bytes"]
+            / ref["memory"]["temp_size_bytes"])
 
 
 def cell(key_of, after, before, golden):
@@ -58,10 +61,9 @@ def cell(key_of, after, before, golden):
         new = ratios(after[key], golden[key])
         old = ratios(before[key], golden[key]) if before else None
         for i, name in enumerate("FCT"):
-            fmt = "{:.3e}" if name == "T" else "{:.2f}"
-            text = fmt.format(new[i])
+            text = f"{new[i]:.2f}"
             if old is not None:
-                text = fmt.format(old[i]) + "->" + text
+                text = f"{old[i]:.2f}->{text}"
             parts[name].append(text)
     return "; ".join(f"{n} {' / '.join(v)}" for n, v in parts.items())
 
@@ -82,14 +84,13 @@ def main(argv=None):
         cells = [cell(lambda m, s=s: (arch, s, m), after, before, golden)
                  for s in SHAPES]
         print(f"| {arch} | " + " | ".join(cells) + " |")
-    worst_f = max((ratios(after[k], golden[k])[0], k) for k in golden)
-    worst_c = max((ratios(after[k], golden[k])[1], k) for k in golden)
-    over = [(k, ratios(after[k], golden[k])[0]) for k in golden
-            if ratios(after[k], golden[k])[0] > JAX_FLOPS_BOUND]
-    print(f"\n{len(after)} of {len(golden)} combinations; largest F "
-          f"{worst_f[0]:.4f} {worst_f[1]}, largest C {worst_c[0]:.4f} "
-          f"{worst_c[1]}")
-    print(f"over the bound {JAX_FLOPS_BOUND}: {over or 'none'}")
+    got = {k: ratios(after[k], golden[k]) for k in golden}
+    worst = [max((v[i], k) for k, v in got.items()) for i in range(3)]
+    print(f"\n{len(after)} of {len(golden)} combinations; " + ", ".join(
+        f"largest {n} {w[0]:.4f} {w[1]}" for n, w in zip("FCT", worst)))
+    for n, i, bound in (("F", 0, JAX_FLOPS_BOUND), ("T", 2, JAX_TEMP_BOUND)):
+        over = [(k, round(v[i], 4)) for k, v in got.items() if v[i] > bound]
+        print(f"{n} over the bound {bound}: {over or 'none'}")
     if before:
         moved = [k for k in golden
                  if before[k]["memory"]["argument_size_bytes"]
