@@ -138,12 +138,34 @@ failure, or when there is no card or no checkout beside it. Phases:
    outputs, and equal the counter's own peak on the card, each within
    TEMP_SLACK of the rise; remat must lower both the count and the rise.
    No kernel may launch.
+9. The capacity MoE dispatch (``moe_dispatch="capacity"``, the JAX
+   package's routed form) and the chunked reference attention: (a)
+   deepseek-v2-lite-16b (full width and depth) and llama4-scout-17b-a16e
+   (2 layers) in bf16 through ``TorchBackend`` with the capacity dispatch:
+   each CUDA graph's replay held to its eager step bit for bit as in phase
+   4, the share of assignments the capacity drops at a decode step of 8
+   rows and at a 64-token forward (deepseek's C is 1 row an expert at the
+   decode step), phase 4's 8 requests under AGFT with the launches held to
+   ``path_launches``, and the graphed decode step's median beside phase
+   4's dense one, with the card's name and power limit (no claim); (b) on
+   a one-rank NCCL group and its 1x1 mesh, no kernels: the capacity train
+   step of deepseek-v2-lite-16b at full width cut to CAP_TRAIN_LAYERS
+   layers at 8 x 128, and a prefill of CHUNK_BATCH x CHUNK_SEQ tokens of
+   llama3-3b through the chunked reference attention, each placed must
+   equal its plain form bit for bit, and the dry-run's temp_size_bytes of
+   each must meet the allocator's requested bytes' rise within TEMP_SLACK
+   as phase 8 (c) holds it; (c) before (b), on this machine's torch, the
+   port's ``cost_extrapolated`` of deepseek-v2-lite-16b x train_4k with
+   the capacity dispatch under the expert-parallel constraint on the 16x16
+   mesh, held to the JAX package's (``tests/golden_variants_jax.json``) as
+   ``tests/test_torch_variants.py`` holds it.
 
 The last lines are a JSON object with each kernel's numbers (a row per
 kernel and timed shape; its launches are those of the serve runs whose
 path runs that shape, also given per model, phase 5's under
 ``"llama3-3b azure"``, phase 6's under ``"whisper-medium"``, phase 7's
-under ``"llama3-3b trained"``) and the
+under ``"llama3-3b trained"``, phase 9's under ``"<model> capacity"``)
+and the
 result line ``{"ok": true, "device":
 {...}}``.
 """
@@ -269,6 +291,20 @@ DIST_DRYRUN_TEMP = ("whisper-medium", "train_4k")
 DIST_GOLDEN = os.path.join(HERE, "tests", "golden_dryrun_jax.json")
 DIST_ARCH = "llama3-3b"
 DIST_PROMPT, DIST_SLOTS, DIST_BATCH, DIST_STEPS = 64, 2048, 8, 4
+# phase 9: the capacity dispatch served by these (at DEPTH), its runs'
+# keys in the kernels line; its train step placed on 1x1 at full width,
+# cut to the dense layer and two MoE layers; a chunked prefill placed
+CAPACITY_MODELS = ("deepseek-v2-lite-16b", "llama4-scout-17b-a16e")
+CAPACITY_RUNS = tuple(f"{m} capacity" for m in CAPACITY_MODELS)
+CAP_ARCH, CAP_TRAIN_LAYERS = "deepseek-v2-lite-16b", 3
+CHUNK_ARCH, CHUNK_BATCH, CHUNK_SEQ = "llama3-3b", 8, 1024
+# and the dry-run of this variant on the card's torch, held to the JAX
+# package's costs of it
+VARIANT = ("deepseek-v2-lite-16b", "train_4k", "capacity_moe_ep")
+VARIANT_GOLDEN = os.path.join(HERE, "tests", "golden_variants_jax.json")
+# the graphed decode step's median of each AGFT serve run, by (model,
+# dispatch): phase 9 prints the capacity dispatch's beside phase 4's
+STEP_MS = {}
 # the caching allocator's requested bytes are the bytes asked for, to the
 # byte; the bytes it allocates round each block up to 512 and keep with a
 # block cut from a large segment a remainder under 1 MiB (it splits off
@@ -294,16 +330,20 @@ G1_DECODE = (8, WHISPER_MAX_LEN, 16, 16, 64)
 G1_VALID = (WHISPER_PROMPT + 1, WHISPER_PROMPT + WHISPER_STEPS)
 # each timed row of the kernels line: its kernel, and the serve runs whose
 # path launches that kernel at the row's shape (the row counts theirs)
-ROWS = {"rmsnorm": ("rmsnorm", MODELS + (AZURE_RUN, TRAINED_RUN)),
-        "add_rmsnorm": ("rmsnorm_fused", MODELS + (AZURE_RUN, TRAINED_RUN)),
+ROWS = {"rmsnorm": ("rmsnorm", MODELS + (AZURE_RUN, TRAINED_RUN)
+                    + CAPACITY_RUNS),
+        "add_rmsnorm": ("rmsnorm_fused", MODELS + (AZURE_RUN, TRAINED_RUN)
+                        + CAPACITY_RUNS),
         "flash_attention": ("flash_attention", ("llama3-3b", AZURE_RUN,
                                                 TRAINED_RUN)),
         "flash_attention_g5": ("flash_attention",
-                               ("llama4-scout-17b-a16e",)),
+                               ("llama4-scout-17b-a16e",
+                                "llama4-scout-17b-a16e capacity")),
         "decode_attention": ("decode_attention", ("llama3-3b", AZURE_RUN,
                                                   TRAINED_RUN)),
         "decode_attention_g5": ("decode_attention",
-                                ("llama4-scout-17b-a16e",)),
+                                ("llama4-scout-17b-a16e",
+                                 "llama4-scout-17b-a16e capacity")),
         "decode_attention_d256_g16": ("decode_attention",
                                       ("recurrentgemma-9b",)),
         "ssd_scan": ("ssd_scan", ("mamba2-1.3b",)),
@@ -1313,6 +1353,8 @@ def serve(torch, backend, policy_name, reqs, **policy_kw):
     dec = backend.decode_steps - dec0
     walls = backend.decode_wall_s[walls0:]
     step_ms = 1e3 * statistics.median(walls) if walls else float("nan")
+    if policy_name == "agft":
+        STEP_MS[(cfg.name, cfg.moe_dispatch)] = step_ms
     say(f"  {cfg.name} under {policy_name} (window "
         f"{tuner.monitor.sampling_period_s} s): {c.iterations_total} "
         f"iterations ({len(lengths)} prefill forwards, {dec} decode steps) "
@@ -2308,7 +2350,8 @@ def dist_counts(torch, dryrun):
     with dryrun.fake_process_group(1):
         mesh = make_debug_mesh(1, 1, device_type="cpu")
         fn, args = dryrun.build_lowering(
-            DIST_ARCH, "train_4k", mesh, cfg_override=cfg, shape=shape)
+            DIST_ARCH, "train_4k", mesh, cfg_override=cfg, shape=shape,
+            donate=True)
         arg_bytes = local_bytes(args)
         _, counter = dryrun.count_step(fn, args)
         _, whole = dryrun.count_step(*dryrun.build_lowering(
@@ -2325,7 +2368,7 @@ def dist_counts(torch, dryrun):
                 ("decode", cfg, dist_shape("decode"), {})):
             _, c = dryrun.count_step(*dryrun.build_lowering(
                 DIST_ARCH, shp.name, mesh, cfg_override=cfg_i, shape=shp,
-                **kw))
+                donate=True, **kw))
             memory[name] = dist_memory(c)
     return {"argument_size_bytes": arg_bytes, "flops": counter.flops,
             "flops_global": whole.flops,
@@ -2594,7 +2637,8 @@ def placed_decode(torch, dev, mesh, counts):
     dry = counts["memory"]
     fns = {kind: dryrun.build_lowering(
         DIST_ARCH, kind, mesh, cfg_override=cfg, shape=dist_shape(kind),
-        max_len=DIST_SLOTS)[0] for kind in ("prefill", "decode")}
+        max_len=DIST_SLOTS, donate=True)[0]
+        for kind in ("prefill", "decode")}
     params = init()
     params = with_sharding(params, param_pspecs(params, mesh), mesh)
     tokens = with_sharding(toks[:, :S], batch_pspec(mesh, B, extra_dims=1),
@@ -2618,6 +2662,266 @@ def placed_decode(torch, dev, mesh, counts):
     hold_temp("d", f"decode step of {B} rows against {DIST_SLOTS} slots",
               dry["decode"], counter, reading)
     del params, cache
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the capacity dispatch and the chunked reference attention
+# ---------------------------------------------------------------------------
+
+def capacity_phase(torch, dev):
+    """Phase 9; see the module's docstring. Returns each serve run's launch
+    counts under its key in CAPACITY_RUNS."""
+    import torch.distributed as dist
+    from repro_torch.energy import H100
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving import TorchBackend
+    t0 = time.perf_counter()
+    counts = {}
+    for name, run in zip(CAPACITY_MODELS, CAPACITY_RUNS):
+        cfg = model_config(name).replace(moe_dispatch="capacity")
+        t1 = time.perf_counter()
+        backend = TorchBackend(cfg, H100, max_batch=8, cache_len=2048,
+                               device=dev)
+        torch.cuda.synchronize()
+        say(f"  (a) {name} capacity dispatch (factor "
+            f"{cfg.capacity_factor}), {cfg.dtype} at {cfg.num_layers} "
+            f"layers: backend ready in {time.perf_counter() - t1:.1f} s; "
+            f"{len(backend.graphs)} graphs, a decode replay launches "
+            f"{backend.decode_graph.launches}")
+        check_graphs(torch, dev, backend)
+        dropped_share(torch, dev, backend)
+        counts[run] = serve(torch, backend, "agft", normal_requests(),
+                            sampling_period_s=0.2)
+        say(f"  (a) {name} graphed decode step, median under AGFT: capacity "
+            f"{STEP_MS[(name, 'capacity')]:.4f} ms, dense (phase 4) "
+            f"{STEP_MS.get((name, 'dense'), float('nan')):.4f} ms; card: "
+            f"{card_line()}")
+        del backend
+        torch.cuda.empty_cache()
+    variant_dryrun()
+    before = launch_counts()
+    memory = capacity_counts()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        from repro_torch.launch.mesh import make_debug_mesh
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        placed_capacity_step(torch, dev, mesh, memory["train"])
+        placed_chunked_prefill(torch, dev, mesh, memory["prefill"])
+    finally:
+        dist.destroy_process_group()
+    if launch_counts() != before:
+        fail(f"phase 9 (b) launched port kernels: {before} -> "
+             f"{launch_counts()}")
+    say(f"  phase 9: {time.perf_counter() - t0:.1f} s wall")
+    return counts
+
+
+def variant_dryrun():
+    """Phase 9 (c): the port's ``cost_extrapolated`` of VARIANT (the
+    capacity dispatch with the expert-parallel constraint: the config
+    fields its golden row records) on the 16x16
+    production mesh over a fake group, on this machine's torch, held to the
+    JAX package's (VARIANT_GOLDEN) as ``tests/test_torch_variants.py``
+    holds it: FLOPs a rank within ``dryrun.JAX_FLOPS_BOUND`` x, collective
+    bytes within 2 x, ``u2_temp_bytes`` within ``dryrun.JAX_TEMP_BOUND`` x,
+    and the FLOPs an even split of the whole step's within
+    ``dryrun.JAX_FLOPS_BOUND``."""
+    from repro_torch.launch import dryrun
+    arch, shape, variant = VARIANT
+    with open(VARIANT_GOLDEN) as f:
+        ref = next(r for r in json.load(f)["results"]
+                   if (r["arch"], r["shape"], r["variant"]) == VARIANT)
+    fields, ref = ref["replace"], ref["extrapolated"]
+    t0 = time.perf_counter()
+    got = dryrun.cost_extrapolated(arch, shape, (16, 16),
+                                   lambda c: c.replace(**fields))
+    ratios = {"flops": got["flops"] / ref["flops"],
+              "collective bytes": got["collective_bytes"]["total"]
+              / ref["collective_bytes"]["total"],
+              "u2 temp bytes": got["u2_temp_bytes"] / ref["u2_temp_bytes"],
+              "flops x 256 / flops_global": got["flops"] * 256
+              / got["flops_global"]}
+    say(f"  (c) dry-run {arch} x {shape} x 16x16, {variant}: flops a rank "
+        f"{got['flops']:.4e} (global {got['flops_global']:.4e}), collective "
+        f"bytes {got['collective_bytes']['total']:.4e}, u2 temp bytes "
+        f"{got['u2_temp_bytes']:.4e}; over the JAX package's: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ratios.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    bounds = {"flops": dryrun.JAX_FLOPS_BOUND, "collective bytes": 2.0,
+              "u2 temp bytes": dryrun.JAX_TEMP_BOUND,
+              "flops x 256 / flops_global": dryrun.JAX_FLOPS_BOUND}
+    over = [k for k, v in ratios.items() if v > bounds[k]]
+    if over or ratios["flops x 256 / flops_global"] < 1:
+        fail(f"{arch} x {shape} x {variant}: over the bounds {over} "
+             f"({ratios})")
+
+
+def dropped_share(torch, dev, backend):
+    """The share of assignments the capacity dispatch drops, over the
+    layers of one eager decode step of ``max_batch`` rows at context 600
+    and of a 64-token forward, on the backend's weights (its cache
+    cloned)."""
+    from repro_torch.models import blocks, tree_clone
+    kept = []
+    plain = blocks.capacity_experts
+
+    def recorded(*args):
+        y, keep = plain(*args)
+        kept.append(keep)
+        return y, keep
+
+    cfg, B = backend.cfg, backend.max_batch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                         device=dev)
+    blocks.capacity_experts = recorded
+    try:
+        with torch.no_grad():
+            backend.model.decode_step(
+                backend.params, toks, tree_clone(backend.cache),
+                torch.full((B,), 600, dtype=torch.long, device=dev))
+            step = [float(k.float().mean()) for k in kept]
+            kept.clear()
+            backend.model.forward(backend.params, torch.randint(
+                0, cfg.vocab_size, (1, 64), generator=gen, device=dev))
+            fwd = [float(k.float().mean()) for k in kept]
+    finally:
+        blocks.capacity_experts = plain
+    for what, shares, n in (("decode step", step, B), ("64-token forward",
+                                                       fwd, 64)):
+        C = blocks.moe_capacity(cfg, n)
+        say(f"  (a) {cfg.name} {what}: C = {C} rows an expert "
+            f"({n} tokens x top-{cfg.top_k} over {cfg.num_experts} "
+            f"experts x {cfg.capacity_factor}); assignments dropped, mean "
+            f"over {len(shares)} MoE layers: "
+            f"{1 - sum(shares) / max(len(shares), 1):.4f} (min "
+            f"{1 - max(shares):.4f}, max {1 - min(shares):.4f})")
+        if len(shares) != len(backend.params["layers"]):
+            fail(f"{cfg.name} {what}: the capacity dispatch ran in "
+                 f"{len(shares)} layers, not every MoE layer")
+
+
+def capacity_counts():
+    """The dry-run's memory counts (``dist_memory``), on a 1x1 mesh over a
+    fake group, of phase 9 (b)'s steps: CAP_ARCH's capacity train step at
+    TRAIN_BATCH x TRAIN_SEQ (the donated form the card runs), and the
+    chunked prefill of CHUNK_BATCH x CHUNK_SEQ."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    out = {}
+    with dryrun.fake_process_group(1):
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        for kind, (arch, cfg, shape) in capacity_steps().items():
+            _, c = dryrun.count_step(*dryrun.build_lowering(
+                arch, shape.name, mesh, cfg_override=cfg, shape=shape,
+                donate=True))
+            out[kind] = dist_memory(c)
+    return out
+
+
+def capacity_steps():
+    """Phase 9 (b)'s steps: kind -> (arch, config, InputShape)."""
+    from repro_torch.configs.shapes import InputShape
+    cap = model_config(CAP_ARCH).replace(
+        moe_dispatch="capacity", num_layers=CAP_TRAIN_LAYERS,
+        use_pallas=False)
+    chunk = model_config(CHUNK_ARCH).replace(ref_attention="chunked",
+                                             use_pallas=False)
+    return {"train": (CAP_ARCH, cap, InputShape(
+                f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH,
+                "train")),
+            "prefill": (CHUNK_ARCH, chunk, InputShape(
+                f"prefill_{CHUNK_BATCH}x{CHUNK_SEQ}", CHUNK_SEQ,
+                CHUNK_BATCH, "prefill"))}
+
+
+def placed_capacity_step(torch, dev, mesh, dry):
+    """Phase 9 (b): CAP_ARCH's capacity train step placed on ``mesh`` (1x1)
+    against the plain step, bit for bit, and its temp bytes against the
+    card (``hold_temp``)."""
+    from repro_torch.distributed import (batch_pspec, param_pspecs,
+                                         with_sharding)
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model, tree_tensors
+    from repro_torch.training import init_adamw, make_train_step
+    from torch.distributed.tensor import DTensor
+    arch, cfg, shape = capacity_steps()["train"]
+    model = build_model(cfg)
+    batch = dist_batch(torch, dev, cfg)
+
+    def init():
+        return model.init(torch.Generator(device=dev).manual_seed(0))
+
+    params = init()
+    params, opt, m = make_train_step(model)(params, init_adamw(params), batch)
+    torch.cuda.synchronize()
+    plain = [t.detach().to("cpu") for t in tree_tensors((params, opt, m))]
+    n_params = sum(t.numel() for t in tree_tensors(params))
+    del params, opt, m
+    torch.cuda.empty_cache()
+    fn, _ = dryrun.build_lowering(arch, shape.name, mesh, cfg_override=cfg,
+                                  shape=shape, donate=True)
+    params = init()
+    p_specs = param_pspecs(params, mesh)
+    opt = init_adamw(params)
+    args = (with_sharding(params, p_specs, mesh),
+            with_sharding(opt, dryrun.param_pspecs_like_opt(opt, p_specs),
+                          mesh),
+            {k: with_sharding(v, batch_pspec(mesh, TRAIN_BATCH), mesh)
+             for k, v in batch.items()})
+    del params, opt
+    out, counter, reading = card_memory(torch, dryrun, fn, args)
+    got = [t.to_local() if isinstance(t, DTensor) else t
+           for t in tree_tensors(out)]
+    same = [torch.equal(a.to(dev), b) for a, b in zip(plain, got)]
+    say(f"  (b) {arch} capacity train step ({CAP_TRAIN_LAYERS} layers, "
+        f"{n_params / 1e9:.3f} B params, {cfg.dtype}) {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, "
+        f"placed on 1x1 vs plain: loss {float(plain[-3]):.6f}; "
+        f"{sum(same)} of {len(same)} leaves and metrics equal "
+        "(torch.equal)")
+    if len(got) != len(plain) or not all(same):
+        fail("the placed capacity train step differs from the plain step")
+    hold_temp("b", f"{arch} capacity train step", dry, counter, reading)
+    del out, got, args, plain
+    torch.cuda.empty_cache()
+
+
+def placed_chunked_prefill(torch, dev, mesh, dry):
+    """Phase 9 (b): CHUNK_ARCH's prefill through the chunked reference
+    attention placed on ``mesh`` (1x1) against the plain prefill, bit for
+    bit (logits and every cache tensor), and its temp bytes against the
+    card."""
+    import numpy as np
+    from repro_torch.distributed import (batch_pspec, param_pspecs,
+                                         with_sharding)
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model, tree_tensors
+    arch, cfg, shape = capacity_steps()["prefill"]
+    model = build_model(cfg)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (CHUNK_BATCH, CHUNK_SEQ), dtype=np.int32)).to(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        plain = [t.to("cpu") for t in tree_tensors(
+            model.prefill(params, toks, max_len=CHUNK_SEQ))]
+    fn, _ = dryrun.build_lowering(arch, shape.name, mesh, cfg_override=cfg,
+                                  shape=shape)
+    args = (with_sharding(params, param_pspecs(params, mesh), mesh),
+            {"tokens": with_sharding(toks, batch_pspec(mesh, CHUNK_BATCH),
+                                     mesh)})
+    out, counter, reading = card_memory(torch, dryrun, fn, args)
+    got = [t.full_tensor() for t in tree_tensors(out)]
+    same = [torch.equal(a.to(dev), b) for a, b in zip(plain, got)]
+    say(f"  (b) {arch} prefill of {CHUNK_BATCH} x {CHUNK_SEQ} through the "
+        f"chunked reference attention, placed on 1x1 vs plain: {sum(same)} "
+        f"of {len(same)} tensors (logits, cache) equal (torch.equal)")
+    if len(got) != len(plain) or not all(same):
+        fail("the placed chunked prefill differs from the plain prefill")
+    hold_temp("b", f"{arch} chunked prefill", dry, counter, reading)
+    del out, got, args, params, plain
     torch.cuda.empty_cache()
 
 
@@ -2690,6 +2994,11 @@ def main() -> None:
     say("== phase 8: the distribution layer: the dry-run, and full-width "
         f"{DIST_ARCH} placed on a 1x1 mesh against the plain path")
     dist_phase(torch, dev)
+    torch.cuda.empty_cache()
+
+    say("== phase 9: the capacity MoE dispatch served, and the capacity "
+        "train step and a chunked prefill placed on a 1x1 mesh")
+    counts.update(capacity_phase(torch, dev))
     torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -29,10 +29,12 @@ batch on the data axes and replicated over "model".
   partial (max, sum, product). Where the data axes leave the batch whole
   (long_500k's one row), MLA's decode attends a part of the slots on each
   of their ranks (``split_slots``).
-* ``local_conv``, ``moe_experts``, ``ssd_heads``, ``rms_norm``: the
-  depthwise conv on each rank's channels, the dense expert dispatch on
-  each rank's experts, the SSD on each rank's heads, an RMSNorm over a
-  split dim; ``ssd_parts``: Mamba-2's fused columns exchanged so that
+* ``local_conv``, ``moe_experts``, ``moe_capacity``, ``ssd_heads``,
+  ``rms_norm``: the depthwise conv on each rank's channels, the dense and
+  the capacity expert dispatch on each rank's experts (the capacity
+  dispatch's routing that of the whole batch; with the EP constraint its
+  buffer's rows split over the data axes too), the SSD on each rank's
+  heads, an RMSNorm over a split dim; ``ssd_parts``: Mamba-2's fused columns exchanged so that
   each rank holds what its heads read.
 * ``vocab_parallel_nll``: the cross entropy of logits sharded over the
   vocab (``logits_pspec``), Megatron's vocab-parallel form: three
@@ -605,6 +607,146 @@ def moe_experts(fn, x: DTensor, combine: DTensor, w_gate, w_in, w_out):
                      (x_grad, c_in, w_grad, w_grad, w_grad), mesh)
     return _reduced(run(_grad_to(x), _grad_to(combine),
                         *(_grad_to(w) for w in ws)))
+
+
+class _Across(torch.autograd.Function):
+    """One collective over mesh dim ``i`` of local tensors, with its
+    adjoint: "scatter", a reduce-scatter of dim 1 (backward: the
+    all-gather); "gather", an all-gather of dim 1 (backward: the
+    reduce-scatter); "sum", an all-reduce of parts that no two ranks both
+    hold, whose sum every rank then reads for its own rows only (backward:
+    the identity, each rank's gradient already whole where it reads)."""
+
+    @staticmethod
+    def forward(ctx, t, kind, mesh, i):
+        ctx.meta = (kind, mesh, i)
+        return _across(t, kind, (mesh, i))
+
+    @staticmethod
+    def backward(ctx, grad):
+        kind, mesh, i = ctx.meta
+        if kind != "sum":
+            back = "gather" if kind == "scatter" else "scatter"
+            grad = _across(grad.contiguous(), back, (mesh, i))
+        return grad, None, None, None
+
+
+def _across(t: torch.Tensor, kind: str, group) -> torch.Tensor:
+    if kind == "scatter":
+        return funcol.reduce_scatter_tensor(t, "sum", scatter_dim=1,
+                                            group=group)
+    if kind == "gather":
+        return funcol.all_gather_tensor(t, gather_dim=1, group=group)
+    return funcol.all_reduce(t, "sum", group)
+
+
+class _RankBuffer:
+    """A rank's share of the capacity dispatch's (E, C, D) buffer, in the
+    form ``blocks.capacity_experts`` reads (``blocks.WholeBuffer``'s): the
+    experts the mesh dims ``experts`` give it, and every assignment's rank
+    within its expert counted over the whole batch, whose rows the mesh
+    dims ``rows`` split (data-major): its local arrival rank plus the
+    assignments to that expert on the ranks before it (one all-gather of
+    the (E,) counts). With ``split_rows`` the buffer's C rows are split
+    over ``rows`` too (padded to a multiple of their ranks): each rank
+    fills its tokens' rows and one reduce-scatter gives each rank its
+    part; the outputs are all-gathered back. Without, one all-reduce gives
+    each rank its experts' whole buffer. The contributions of a token's
+    assignments, each made on the rank of its expert, are joined by one
+    all-reduce over ``experts``, and each rank sums its tokens' K
+    contributions in the plain path's order."""
+
+    def __init__(self, mesh, rows, experts, num_experts: int, capacity: int,
+                 split_rows: bool):
+        self.mesh, self.rows_dims, self.expert_dims = mesh, rows, experts
+        self.num_experts, self.capacity = num_experts, capacity
+        self.first, self.experts = _offset(mesh, experts, num_experts)
+        n = 1
+        for d in rows:
+            n *= mesh.size(d)
+        self.split = split_rows and n > 1
+        self.rows = -(-capacity // n) * n if self.split else capacity
+
+    def slots(self, e_flat: torch.Tensor):
+        from repro_torch.models.blocks import arrival_ranks
+        E = self.num_experts
+        rank = arrival_ranks(e_flat, E)
+        if self.rows_dims:
+            counts = torch.zeros(E, dtype=rank.dtype, device=rank.device)
+            counts.index_add_(0, e_flat, torch.ones_like(e_flat))
+            seen = counts[None]
+            for d in reversed(self.rows_dims):
+                seen = funcol.all_gather_tensor(seen, gather_dim=0,
+                                                group=(self.mesh, d))
+            me, _ = _offset(self.mesh, self.rows_dims, seen.shape[0])
+            rank = rank + seen[:me].sum(dim=0)[e_flat]
+        keep = rank < self.capacity
+        own = keep & (e_flat >= self.first) & (
+            e_flat < self.first + self.experts)
+        slot = torch.where(own, (e_flat - self.first) * self.rows + rank,
+                           self.experts * self.rows)
+        return slot, keep, own
+
+    def dispatch(self, xe: torch.Tensor) -> torch.Tensor:
+        for d in self.rows_dims:
+            xe = _Across.apply(xe, "scatter" if self.split else "sum",
+                               self.mesh, d)
+        return xe
+
+    def collect(self, ye: torch.Tensor) -> torch.Tensor:
+        if self.split:
+            for d in reversed(self.rows_dims):
+                ye = _Across.apply(ye, "gather", self.mesh, d)
+        return ye
+
+    def combine(self, contrib: torch.Tensor) -> torch.Tensor:
+        for d in self.expert_dims:
+            contrib = _Across.apply(contrib, "sum", self.mesh, d)
+        return contrib
+
+
+def moe_capacity(x: DTensor, top_w, top_idx, w_gate, w_in, w_out, *,
+                 capacity: int, split_rows: bool):
+    """``blocks.capacity_experts`` (the capacity dispatch's experts: x
+    (B, S, d), the routing's top-k weights and experts (B, S, K), expert
+    weights (E, ...), C = ``capacity`` rows an expert) on each rank's rows
+    and experts (expert-parallel over the mesh dims that split the
+    experts), with the routing, the kept set and each token's sum of its
+    contributions those of the whole batch unplaced (``_RankBuffer``).
+    ``split_rows`` (``moe_ep_constraint``) splits the buffer's rows over
+    the mesh dims that split the batch, as the JAX package's constraint
+    P("model", "data", None) places it; without it, each of those ranks
+    runs its experts on the whole buffer, as the JAX package's partitioner
+    leaves it. (y (B, S, d) fp32, keep (B, S, K)), split over the batch
+    as x is."""
+    from repro_torch.models.blocks import capacity_experts
+    mesh = _mesh_of(x, w_gate)
+    x, top_w, top_idx = (_as_dtensor(t, mesh) for t in (x, top_w, top_idx))
+    ws = [_as_dtensor(w, mesh) for w in (w_gate, w_in, w_out)]
+    rows = _rows(x, x.ndim - 1)
+    row_dims = [i for i, p in enumerate(rows)
+                if _is_shard(p) and mesh.size(i) > 1]
+    experts = [i for i, p in enumerate(ws[0].placements)
+               if _is_shard(p, 0) and mesh.size(i) > 1]
+    if set(row_dims) & set(experts):
+        raise ValueError("a mesh dim splits both the batch and the experts")
+    buffer = _RankBuffer(mesh, row_dims, experts, w_gate.shape[0], capacity,
+                         split_rows)
+    a_grad = [_partial(mesh, i) if i in experts else r
+              for i, r in enumerate(rows)]
+    w_in_pl = [Shard(0) if i in experts else Replicate()
+               for i in range(mesh.ndim)]
+    w_grad = [Shard(0) if i in experts else
+              (Partial() if i in row_dims else Replicate())
+              for i in range(mesh.ndim)]
+
+    def run(x_, w_, idx_, wg, wi, wo):
+        return capacity_experts(x_, w_, idx_, wg, wi, wo, buffer)
+
+    return _local_map(run, (rows, rows),
+                      (rows, rows, rows, w_in_pl, w_in_pl, w_in_pl),
+                      (a_grad, a_grad, rows, w_grad, w_grad, w_grad), mesh)(
+        _grad_to(x), _grad_to(top_w), top_idx, *(_grad_to(w) for w in ws))
 
 
 def ssd_heads(fn, n_heads: int, z, x, b, c, dt, dt_bias, a_log, d_skip,

@@ -34,9 +34,16 @@ run is the proof. It reports, with the JAX package's keys:
   program, so ``generated_code_size_bytes`` is None.
 
 ``compile_s`` is the seconds to build and run the step on meta tensors.
-Every count is taken on the CPU and is not a speed. The port keeps its
-layers as lists, so every layer is counted and ``--cost-extrapolate`` has
-nothing to extrapolate: its block holds the full-depth counts.
+Every count is taken on the CPU and is not a speed.
+
+``cost_extrapolated(arch, shape, mesh, cfg_transform=None, donate=False)``
+costs a variant of a step (a config transform, donated arguments) with the
+JAX package's keys. The port keeps its layers as lists, so every layer is
+counted: ``flops``, ``bytes_accessed``, ``collective_bytes`` and
+``scan_length`` are the full-depth step's, nothing extrapolated, and
+``u2_temp_bytes`` and ``u2_arg_bytes`` those of the u = 2 variant
+(``_cost_variant``), as the JAX package's are. ``--cost-extrapolate`` adds
+that block to each combination.
 
 No process group is set up at import: ``run_one`` sets one up and destroys
 it.
@@ -68,7 +75,7 @@ from repro_torch.distributed.sharding import (PSpec, batch_pspec,
                                               param_pspecs, with_sharding)
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.models import build_model
-from repro_torch.models.common import init_shapes, tree_tensors
+from repro_torch.models.common import init_shapes, tree_map, tree_tensors
 from repro_torch.training.optimizer import AdamWConfig, init_adamw
 from repro_torch.training.train_loop import make_train_step
 
@@ -287,13 +294,21 @@ def param_pspecs_like_opt(opt_state, p_specs):
 # ---------------------------------------------------------------------------
 
 def build_lowering(arch: str, shape_name: str, mesh, *, cfg_override=None,
-                   shape=None, place: bool = True, max_len=None):
+                   shape=None, place: bool = True, max_len=None,
+                   donate: bool = False):
     """(fn, args): the step of ``shape_name``'s kind (or of ``shape``, an
     ``InputShape`` given in its place) and its arguments, meta tensors, each
     a DTensor on ``mesh`` (plain with ``place`` False). ``fn(*args)`` runs
     the step; plain tensors made inside it (positions, masks, rope tables)
     are taken as replicated (``implicit_replication``). A prefill fills a
-    cache of ``max_len`` slots (default: the shape's sequence length)."""
+    cache of ``max_len`` slots (default: the shape's sequence length).
+
+    The train step writes the params and AdamW moments it is given, and a
+    decode step its cache, in place: the donated form
+    (``donate_argnums=(0, 1)`` and ``(2,)`` in the JAX package). Without
+    ``donate`` the step first copies those arguments and works on the
+    copies, which it returns, so the caller's tensors survive as JAX's
+    undonated buffers do; the counts see the copies."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     shape = shape or get_shape(shape_name)
@@ -319,6 +334,8 @@ def build_lowering(arch: str, shape_name: str, mesh, *, cfg_override=None,
         step = make_train_step(model, AdamWConfig())
 
         def train_fn(params, opt_state, batch):
+            if not donate:
+                params, opt_state = _copies(params), _copies(opt_state)
             with implicit_replication():
                 return step(params, opt_state, batch)
         return train_fn, (params_in, opt_in, inputs_in)
@@ -340,14 +357,21 @@ def build_lowering(arch: str, shape_name: str, mesh, *, cfg_override=None,
     cache_in = placed(cache, cache_pspecs(cache, mesh, B))
 
     def serve_step(params, token, cache, pos):
+        if not donate:
+            cache = _copies(cache)
         with implicit_replication(), torch.no_grad():
             return model.decode_step(params, token, cache, pos)
     return serve_step, (params_in, inputs_in["token"], cache_in,
                         inputs_in["pos"])
 
 
+def _copies(tree):
+    """The tree's tensors copied (detached: a copy of a leaf is a leaf)."""
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
 # ---------------------------------------------------------------------------
-# depth: every layer is counted (no extrapolation)
+# the costs of a variant: every layer is counted (no extrapolation)
 # ---------------------------------------------------------------------------
 
 def _scan_length(cfg) -> int:
@@ -358,17 +382,85 @@ def _scan_length(cfg) -> int:
     return cfg.num_layers - prefix
 
 
-def _full_depth_block(result: dict, cfg) -> dict:
-    """The ``extrapolated`` block of the JAX package, from the full-depth
-    counts: the port's layers are lists, so nothing is extrapolated."""
-    return {"flops": result["flops"],
-            "bytes_accessed": result["bytes_accessed"],
-            "collective_bytes": dict(result["collective_bytes"]),
+def _cost_variant(cfg, u: int):
+    """The config cut to u layer groups (the JAX package's unrolled cost
+    variant: u scanned layers after the MoE models' dense prefix, u
+    pattern units plus the tail of a hybrid, u encoder and u decoder
+    layers of an encoder-decoder)."""
+    if cfg.arch_type == "hybrid":
+        pat = len(cfg.block_pattern or ("rec", "rec", "attn"))
+        tail = cfg.num_layers % pat
+        return cfg.replace(num_layers=pat * u + tail, unroll_layers=True)
+    if cfg.is_encoder_decoder:
+        return cfg.replace(num_layers=u, encoder_layers=u,
+                           unroll_layers=True)
+    prefix = cfg.first_k_dense if cfg.num_experts else 0
+    return cfg.replace(num_layers=prefix + u, unroll_layers=True)
+
+
+def _count_cost(arch, shape_name, mesh, cfg, donate: bool = False,
+                whole: bool = True) -> dict:
+    """One rank's counts of the placed step of ``cfg`` on ``mesh`` and, with
+    ``whole``, ``flops_global``: those of the same step with nothing
+    placed."""
+    fn, args = build_lowering(arch, shape_name, mesh, cfg_override=cfg,
+                              donate=donate)
+    arg_bytes = local_bytes(args)
+    out, counter = count_step(fn, args)
+    out_bytes = local_bytes(out)
+    del out, args
+    flops_global = None
+    if whole:
+        flops_global = count_step(*build_lowering(
+            arch, shape_name, mesh, cfg_override=cfg, place=False,
+            donate=donate))[1].flops
+    return {"flops": counter.flops, "flops_global": flops_global,
+            "bytes": counter.bytes_accessed,
+            "coll": counter.collective_bytes(),
+            "temp_bytes": counter.temp_bytes, "arg_bytes": arg_bytes,
+            "out_bytes": out_bytes}
+
+
+def _extrapolated(arch, shape_name, mesh, cfg, full: dict,
+                  donate: bool) -> dict:
+    """The JAX package's ``cost_extrapolated`` block: the full-depth counts
+    ``full`` (``_count_cost``), the u = 2 variant's memory."""
+    u2 = _count_cost(arch, shape_name, mesh, _cost_variant(cfg, 2),
+                     donate=donate, whole=False)
+    return {"flops": full["flops"], "flops_global": full["flops_global"],
+            "bytes_accessed": full["bytes"],
+            "collective_bytes": dict(full["coll"]),
             "scan_length": _scan_length(cfg),
-            "u2_temp_bytes": result["memory"]["temp_size_bytes"],
-            "u2_arg_bytes": result["memory"]["argument_size_bytes"],
+            "u2_temp_bytes": u2["temp_bytes"],
+            "u2_arg_bytes": u2["arg_bytes"],
             "note": "full depth: every layer counted (the port's layers "
-                    "are lists), not extrapolated"}
+                    "are lists), not extrapolated; u2_* from the u=2 "
+                    "variant"}
+
+
+def cost_extrapolated(arch, shape_name, mesh, cfg_transform=None,
+                      donate: bool = False) -> dict:
+    """The costs of a variant of (arch, shape) on ``mesh``: the config with
+    ``cfg_transform`` applied, the train step's params and moments or the
+    decode step's cache donated with ``donate``. ``mesh`` is a
+    ``DeviceMesh`` over a ``fake`` group, as ``run_one`` builds it, or,
+    where no process group is set up, the shape of a debug or production
+    mesh (``mesh_shape``'s, say (16, 16)): a ``fake`` group as wide is
+    then set up for the call and the mesh made in it. The JAX package's
+    keys (``repro.launch.dryrun.cost_extrapolated``), plus
+    ``flops_global``; see the module's docstring."""
+    cfg = config_for_shape(arch, shape_name).replace(use_pallas=False)
+    if cfg_transform is not None:
+        cfg = cfg_transform(cfg)
+    if isinstance(mesh, tuple):
+        n = 1
+        for v in mesh:
+            n *= v
+        with fake_process_group(n):
+            return cost_extrapolated(arch, shape_name, _mesh_for(mesh),
+                                     cfg_transform, donate)
+    full = _count_cost(arch, shape_name, mesh, cfg, donate=donate)
+    return _extrapolated(arch, shape_name, mesh, cfg, full, donate)
 
 
 # ---------------------------------------------------------------------------
@@ -379,6 +471,15 @@ def mesh_shape(*, multi_pod: bool = False, debug_mesh: bool = False):
     if debug_mesh:
         return (2, 2, 4) if multi_pod else (2, 4)
     return (2, 16, 16) if multi_pod else (16, 16)
+
+
+def _mesh_for(shape):
+    """The debug or production mesh of ``shape`` (``mesh_shape``'s), on the
+    CPU, in the process group set up."""
+    multi_pod = len(shape) == 3
+    if shape == mesh_shape(multi_pod=multi_pod, debug_mesh=True):
+        return make_debug_mesh(multi_pod=multi_pod, device_type="cpu")
+    return make_production_mesh(multi_pod=multi_pod, device_type="cpu")
 
 
 @contextlib.contextmanager
@@ -421,39 +522,32 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     n_dev = 1
     for v in shp:
         n_dev *= v
+    cfg = (cfg_override or config_for_shape(arch, shape_name)).replace(
+        use_pallas=False)
     with fake_process_group(n_dev):
-        if debug_mesh:
-            mesh = make_debug_mesh(multi_pod=multi_pod, device_type="cpu")
-        else:
-            mesh = make_production_mesh(multi_pod=multi_pod,
-                                        device_type="cpu")
-        fn, args = build_lowering(arch, shape_name, mesh,
-                                  cfg_override=cfg_override)
-        arg_bytes = local_bytes(args)
-        out, counter = count_step(fn, args)
-        out_bytes = local_bytes(out)
-        _, whole = count_step(*build_lowering(
-            arch, shape_name, mesh, cfg_override=cfg_override, place=False))
+        mesh = _mesh_for(shp)
+        full = _count_cost(arch, shape_name, mesh, cfg)
+        extra = (_extrapolated(arch, shape_name, mesh, cfg, full, False)
+                 if extrapolate else None)
     result = {
         "arch": arch,
         "shape": shape_name,
         "mesh": "x".join(str(v) for v in shp),
         "devices": n_dev,
-        "flops": counter.flops,
-        "flops_global": whole.flops,
-        "bytes_accessed": counter.bytes_accessed,
-        "collective_bytes": counter.collective_bytes(),
+        "flops": full["flops"],
+        "flops_global": full["flops_global"],
+        "bytes_accessed": full["bytes"],
+        "collective_bytes": full["coll"],
         "memory": {
-            "argument_size_bytes": arg_bytes,
-            "output_size_bytes": out_bytes,
-            "temp_size_bytes": counter.temp_bytes,
+            "argument_size_bytes": full["arg_bytes"],
+            "output_size_bytes": full["out_bytes"],
+            "temp_size_bytes": full["temp_bytes"],
             "generated_code_size_bytes": None,
         },
         "compile_s": round(time.time() - t0, 2),
     }
-    if extrapolate:
-        cfg = cfg_override or config_for_shape(arch, shape_name)
-        result["extrapolated"] = _full_depth_block(result, cfg)
+    if extra is not None:
+        result["extrapolated"] = extra
     if verbose:
         print(f"[dryrun] {arch} x {shape_name} x mesh={result['mesh']}: "
               f"OK ({result['compile_s']}s)")
@@ -481,7 +575,8 @@ def main(argv=None):
     ap.add_argument("--out", default="",
                     help="write JSON results to this path")
     ap.add_argument("--cost-extrapolate", action="store_true",
-                    help="add the full-depth costs block")
+                    help="add cost_extrapolated's block (full depth, and "
+                         "the u=2 variant's memory)")
     args = ap.parse_args(argv)
 
     archs = ASSIGNED_ARCHS if (args.all or args.arch == "all") \

@@ -119,7 +119,13 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
 
     q: (B,S,H,Dk); k: (B,T,Hkv,Dk); v: (B,T,Hkv,Dv). Query and key absolute
     positions are their indices (the prefill convention); ``window`` keeps
-    keys j in (i - window, i]."""
+    keys j in (i - window, i]. DTensor operands attend shard by shard
+    (``distributed.parallel.local_attention``)."""
+    if is_dtensor(q) or is_dtensor(k):
+        from repro_torch.distributed import parallel
+        return parallel.local_attention(_chunked_attention, q, k, v, None,
+                                        causal=causal, window=window,
+                                        block_k=block_k)
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -154,6 +160,12 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
     l = torch.where(l == 0.0, 1.0, l)
     out = acc / l[..., None]
     return out.reshape(B, S, H, Dv).to(q.dtype)
+
+
+def _chunked_attention(q, k, v, mask, **kw):
+    """``flash_attention_chunked`` in the form ``local_attention`` calls
+    (the mask is None: the chunked path masks by position)."""
+    return flash_attention_chunked(q, k, v, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -503,17 +515,28 @@ def _mla_partial(q_nope, q_rope, k_nope, v, k_rope, mask, scale):
         "bhst,bthd->bhsd")
 
 
-def _mla_attend_chunked(p, cfg: ModelConfig, q_nope, q_rope, c_kv,
-                        k_rope) -> torch.Tensor:
+def _mla_chunked(q_nope, q_rope, k_nope, v, k_rope, mask):
     """Flash-style MLA attention: (nope, rope) concatenated into one key
-    space so that the chunked streaming softmax applies."""
-    B, T = c_kv.shape[:2]
-    H = cfg.num_heads
-    k_nope, v = _mla_up(p, cfg, c_kv)
+    space so that the chunked streaming softmax applies; (B,S,H,v). The
+    mask is None: the chunked path is causal by position."""
+    B, T, H = k_nope.shape[:3]
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
     k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        B, T, H, cfg.qk_rope_head_dim)], dim=-1)
-    out = flash_attention_chunked(q_cat, k_cat, v, causal=True)
+        B, T, H, k_rope.shape[-1])], dim=-1)
+    return flash_attention_chunked(q_cat, k_cat, v, causal=True)
+
+
+def _mla_attend_chunked(p, cfg: ModelConfig, q_nope, q_rope, c_kv,
+                        k_rope) -> torch.Tensor:
+    """``_mla_chunked`` over every latent's K and V; placed operands attend
+    on each rank's heads (``distributed.parallel.local_heads``)."""
+    k_nope, v = _mla_up(p, cfg, c_kv)
+    if is_dtensor(q_nope):
+        from repro_torch.distributed import parallel
+        out = parallel.local_heads(_mla_chunked, (q_nope, q_rope, k_nope, v),
+                                   k_rope, None)
+    else:
+        out = _mla_chunked(q_nope, q_rope, k_nope, v, k_rope, None)
     out = merge_dims(out, 2)
     return matmul(out, p["wo"].to(out.dtype))
 

@@ -100,9 +100,13 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     GEMM with an fp32 output over ``a`` (bf16), or over the three bf16
     parts of ``a`` (fp32, ``_split_bf16``) stacked along M and summed after,
     so every product is exact and only the sums differ from the widened
-    product's (their order, and the tensor cores' fp32 accumulation)."""
+    product's (their order, and the tensor cores' fp32 accumulation).
+    Where autograd records the product (a train step), the widened
+    product: the GEMM with an fp32 output has no derivative."""
     mm = torch.mm if a.dim() == 2 else torch.bmm
-    if not (b.is_cuda and b.dtype == torch.bfloat16):
+    records = torch.is_grad_enabled() and (a.requires_grad
+                                           or b.requires_grad)
+    if records or not (b.is_cuda and b.dtype == torch.bfloat16):
         return mm(a.float(), b.float())
     if a.dtype == torch.bfloat16:
         return mm(a, b, out_dtype=torch.float32)
@@ -192,10 +196,84 @@ def capacity_slots(e_flat: torch.Tensor, num_experts: int, capacity: int):
     buffer row expert * capacity + rank; the rest are dropped to the spare
     row num_experts * capacity."""
     E, C = num_experts, capacity
-    onehot = (e_flat[:, None] == torch.arange(E, device=e_flat.device)).long()
-    rank = torch.cumsum(onehot, dim=0).gather(1, e_flat[:, None])[:, 0] - 1
+    rank = arrival_ranks(e_flat, E)
     keep = rank < C
     return torch.where(keep, e_flat * C + rank, E * C), keep
+
+
+def arrival_ranks(e_flat: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Each assignment's arrival-order rank within its expert (0 for the
+    first): a cumulative count over the token-major axis."""
+    onehot = (e_flat[:, None] == torch.arange(
+        num_experts, device=e_flat.device)).long()
+    return torch.cumsum(onehot, dim=0).gather(1, e_flat[:, None])[:, 0] - 1
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """C, the buffer rows an expert of the capacity dispatch holds for
+    ``n_tokens`` tokens (of the whole batch, placed or not)."""
+    K, E = cfg.top_k, cfg.num_experts
+    return max(int(-(-n_tokens * K // E) * cfg.capacity_factor), 1)
+
+
+class WholeBuffer:
+    """Where the capacity dispatch's assignments go, with nothing placed:
+    every expert's C rows in one buffer, the routing's own ranks, no
+    collective. ``parallel.moe_capacity`` hands ``capacity_experts`` a
+    rank's share instead."""
+
+    def __init__(self, num_experts: int, capacity: int):
+        self.experts, self.rows = num_experts, capacity
+
+    def slots(self, e_flat: torch.Tensor):
+        """(slot, keep, own): each assignment's row in this buffer (the
+        spare row experts * rows where it is not written here), whether the
+        routing keeps it, and whether it is written here."""
+        slot, keep = capacity_slots(e_flat, self.experts, self.rows)
+        return slot, keep, keep
+
+    def dispatch(self, xe: torch.Tensor) -> torch.Tensor:
+        return xe
+
+    def collect(self, ye: torch.Tensor) -> torch.Tensor:
+        return ye
+
+    def combine(self, contrib: torch.Tensor) -> torch.Tensor:
+        return contrib
+
+
+def capacity_experts(x, top_w, top_idx, w_gate, w_in, w_out,
+                     buffer) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The capacity dispatch's experts on x (B,S,D), its routing's top-k
+    weights and experts (B,S,K) and the expert weights (E, ...) that
+    ``buffer`` (``WholeBuffer``, or a rank's share of it) holds: each
+    assignment's token goes to its row of the (E, C, D) buffer, the expert
+    FFNs run on it, and each token sums its K contributions in a fixed
+    order (no atomics). (y (B,S,D) fp32, keep (B,S,K): the assignments the
+    routing kept.)"""
+    B, S, D = x.shape
+    K = top_idx.shape[-1]
+    N = B * S
+    slot, keep, own = buffer.slots(top_idx.reshape(N * K))
+    held = buffer.experts * buffer.rows
+    # each token once an assignment, token-major: a copy whose gradient is
+    # a sum over K, in a fixed order
+    xk = x.reshape(N, 1, D).expand(N, K, D).reshape(N * K, D)
+    buf = torch.zeros((held + 1, D), dtype=x.dtype, device=x.device)
+    buf[slot] = torch.where(own[:, None], xk, 0)
+    xe = buffer.dispatch(buf[:held].reshape(buffer.experts, buffer.rows, D))
+    gate = _mm_f32(xe, w_gate)
+    up = _mm_f32(xe, w_in)
+    ye = buffer.collect(_mm_f32(ffn_act(gate, up, "swiglu"), w_out))
+    ye = ye.reshape(held, D)
+    contrib = torch.where(own[:, None],
+                          ye[torch.clamp(slot, max=held - 1)]
+                          * top_w.reshape(N * K)[:, None], 0.0)
+    contrib = buffer.combine(contrib.reshape(N, K, D))
+    y = contrib[:, 0]
+    for k in range(1, K):
+        y = y + contrib[:, k]
+    return y.reshape(B, S, D), keep.reshape(B, S, K)
 
 
 def moe_forward_capacity(p, cfg: ModelConfig, x: torch.Tensor
@@ -205,30 +283,24 @@ def moe_forward_capacity(p, cfg: ModelConfig, x: torch.Tensor
     expert FFNs run on (E, C, d), and assignments past an expert's capacity
     are dropped (the shared experts still serve those tokens). Each token
     sums its K contributions in a fixed order (no atomics), so a replay of
-    the step equals it bit for bit."""
+    the step equals it bit for bit. Placed operands run on each rank's
+    experts, with the routing of the whole batch
+    (``distributed.parallel.moe_capacity``; ``cfg.moe_ep_constraint``
+    splits the buffer's rows over the data axes too)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
-    N = B * S
     probs, top_w, top_idx = route(p, cfg, x)
-    xf = x.reshape(N, D)
-    e_flat = top_idx.reshape(N * K)
-    w_flat = top_w.reshape(N * K)
-    tok_ids = torch.arange(N * K, device=x.device) // K
-    C = max(int(-(-N * K // E) * cfg.capacity_factor), 1)
-    slot, keep = capacity_slots(e_flat, E, C)
-    buf = torch.zeros((E * C + 1, D), dtype=xf.dtype, device=x.device)
-    buf[slot] = torch.where(keep[:, None], xf[tok_ids], 0)
-    xe = buf[:E * C].reshape(E, C, D)
-    gate = _mm_f32(xe, p["w_gate"])
-    up = _mm_f32(xe, p["w_in"])
-    ye = _mm_f32(ffn_act(gate, up, "swiglu"), p["w_out"]).reshape(E * C, D)
-    contrib = torch.where(keep[:, None],
-                          ye[torch.clamp(slot, max=E * C - 1)]
-                          * w_flat[:, None], 0.0).reshape(N, K, D)
-    y = contrib[:, 0]
-    for k in range(1, K):
-        y = y + contrib[:, k]
-    y = _with_shared(p, cfg, y.reshape(B, S, D).to(x.dtype), x)
+    C = moe_capacity(cfg, B * S)
+    experts = (p["w_gate"], p["w_in"], p["w_out"])
+    if is_dtensor(x):
+        from repro_torch.distributed import parallel
+        y, _ = parallel.moe_capacity(x, top_w, top_idx, *experts,
+                                     capacity=C,
+                                     split_rows=cfg.moe_ep_constraint)
+    else:
+        y, _ = capacity_experts(x, top_w, top_idx, *experts,
+                                WholeBuffer(E, C))
+    y = _with_shared(p, cfg, y.to(x.dtype), x)
     # fraction of tokens routed to each expert (matches the dense path)
     onehot = (top_idx[..., None] == torch.arange(E, device=x.device)).float()
     f = onehot.mean(dim=(0, 1, 2)) * K

@@ -93,6 +93,29 @@ def test_debug_mesh_runs(arch, shape, mesh, tmp_path, capsys):
         v for k, v in r["collective_bytes"].items() if k != "total")
 
 
+@pytest.mark.parametrize("mesh", ["pod", "multipod"])
+@pytest.mark.parametrize("ep", [False, True])
+def test_debug_mesh_runs_the_capacity_dispatch(ep, mesh):
+    """The placed step of llama4-scout-17b-a16e x train_4k (2 layers) with
+    the capacity dispatch, without and with the expert-parallel
+    constraint, runs on the 2x4 and 2x2x4 debug meshes; with the
+    constraint its FLOPs a rank are an even split of the whole step's
+    within ``dryrun.JAX_FLOPS_BOUND`` and its buffer's rows come by a
+    reduce-scatter; without it each data rank runs its experts on the
+    whole buffer, which no reduce-scatter splits."""
+    cfg = get_config("llama4-scout-17b-a16e").replace(
+        num_layers=2, moe_dispatch="capacity", moe_ep_constraint=ep)
+    r = dryrun.run_one("llama4-scout-17b-a16e", "train_4k", verbose=False,
+                       debug_mesh=True, multi_pod=mesh == "multipod",
+                       cfg_override=cfg)
+    share = r["flops"] * r["devices"] / r["flops_global"]
+    assert share >= 1
+    if ep:
+        assert share <= dryrun.JAX_FLOPS_BOUND, share
+    coll = r["collective_bytes"]
+    assert coll["reduce-scatter"] > 0 if ep else coll["reduce-scatter"] == 0
+
+
 def test_collective_bytes_parser():
     hlo = """
   %ar = f32[128,256] all-reduce(%x), replica_groups={}
@@ -131,7 +154,20 @@ def test_full_depth_flops_match_the_matmul_count():
     ext = r["extrapolated"]
     assert ext["scan_length"] == 22
     assert ext["flops"] == r["flops"]
-    assert ext["u2_temp_bytes"] == r["memory"]["temp_size_bytes"] > 0
+    # u2_*: the bytes of the u = 2 variant (2 layers), as the JAX
+    # package's are, not the full-depth step's
+    u2 = dryrun._cost_variant(cfg, 2)
+    assert u2.num_layers == 2
+    with dryrun.fake_process_group(8):
+        fn, args = dryrun.build_lowering(
+            "tinyllama-1.1b", "train_4k",
+            make_debug_mesh(device_type="cpu"), cfg_override=u2)
+        arg_bytes = dryrun.local_bytes(args)
+        _, counter = dryrun.count_step(fn, args)
+    assert ext["u2_temp_bytes"] == counter.temp_bytes > 0
+    assert ext["u2_arg_bytes"] == arg_bytes
+    assert ext["u2_temp_bytes"] < r["memory"]["temp_size_bytes"]
+    assert ext["u2_arg_bytes"] < r["memory"]["argument_size_bytes"]
 
 
 def test_flops_per_rank_and_global():
@@ -293,8 +329,23 @@ from repro_torch.models import build_model, tree_tensors
 rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
                           int(sys.argv[3]), sys.argv[4])
 sys.path.insert(0, sys.argv[6])
-from test_torch_dryrun import (BATCH, DECODE_ONLY, MESHES, PREFILL, SLOTS,
-                               config, first_kv, watched)
+from test_torch_dryrun import (BATCH, CHUNKED, CHUNKED_SEQ, DECODE_ONLY,
+                               MESHES, PREFILL, SLOTS, config, first_kv,
+                               kept_set, long_tokens, watched)
+from repro_torch.distributed import parallel
+# the attentions the placed ops run, by name
+routed = []
+
+
+def recorded(op):
+    def run(fn, *args, **kw):
+        routed.append(fn.__name__)
+        return op(fn, *args, **kw)
+    return run
+
+
+parallel.local_attention = recorded(parallel.local_attention)
+parallel.local_heads = recorded(parallel.local_heads)
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=rank, world_size=world)
 results = {}
@@ -313,14 +364,27 @@ for name in sys.argv[7].split(","):
         p.requires_grad_(True)
     bspec = batch_pspec(mesh, B)
     res = {}
+    if name in CHUNKED:
+        routed.clear()
+        with implicit_replication(), torch.no_grad():
+            lg, pre = model.prefill(
+                placed, with_sharding(long_tokens(cfg, B), bspec, mesh),
+                max_len=CHUNKED_SEQ)
+        results[name] = {"chunked": [lg.full_tensor().tolist(),
+                                     first_kv(pre).full_tensor().tolist()],
+                         "routed": routed[:]}
+        continue
+    if cfg.moe_dispatch == "capacity":
+        with implicit_replication(), torch.no_grad():
+            res["kept"] = kept_set(cfg, placed, mesh).tolist()
     if name not in DECODE_ONLY:
         with implicit_replication():
             loss = model.loss(placed, with_sharding(toks, bspec, mesh),
                               with_sharding(labels, bspec, mesh))
             loss.backward()
-        res = {"loss": loss.full_tensor().item(),
-               "grads": [p.grad.full_tensor().tolist()
-                         for p in watched(placed)]}
+        res.update(loss=loss.full_tensor().item(),
+                   grads=[p.grad.full_tensor().tolist()
+                          for p in watched(placed)])
         res["prefill"] = []
         for slots in SLOTS.get(name, (32,)):
             with implicit_replication(), torch.no_grad():
@@ -366,8 +430,21 @@ dist.destroy_process_group()
 # reading kv heads 0 and 1, two groups; a context-parallel cache
 CONFIGS = ("dense", "dense_mqa", "hybrid", "dense_kv2", "moe")
 MORE_CONFIGS = ("ssm", "moe_row", "dense_h6", "dense_v511")
-MESHES = {"dense_kv2": (1, 4), "moe": (1, 4), "dense_h6": (1, 4)}
-BATCH = {"moe_row": 1}
+# and on a 2x2 mesh the MLA/MoE model's capacity dispatch (2 of its 4
+# experts a rank, top-2; the routing of the whole batch, its rows over
+# data), at capacity factor 1.25 and at 0.5 (which drops assignments),
+# without and with the expert-parallel constraint (the buffer's rows split
+# over data too); and a prefill of CHUNKED_SEQ tokens through the chunked
+# reference attention on placed tensors: a dense model with 2 kv heads on
+# a 1x4 mesh (fewer kv heads than the model axis), with and without a
+# sliding window, and MLA on a 2x2 mesh
+CAPACITY_CONFIGS = ("moe_cap", "moe_cap_drop", "moe_cap_ep",
+                    "moe_cap_ep_drop")
+CHUNKED = ("chunk_kv2", "chunk_window", "chunk_mla")
+CHUNKED_SEQ = 1024          # attention.CHUNKED_ATTENTION_MIN_SEQ
+MESHES = {"dense_kv2": (1, 4), "moe": (1, 4), "dense_h6": (1, 4),
+          "chunk_kv2": (1, 4), "chunk_window": (1, 4)}
+BATCH = {"moe_row": 1, "chunk_kv2": 2, "chunk_window": 2, "chunk_mla": 2}
 DECODE_ONLY = ("moe_row",)
 PREFILL = 8                 # tokens a prefill takes, into 32 slots
 # and into 30, which the model axis does not divide (its kv heads whole)
@@ -383,10 +460,26 @@ CACHE_PLACEMENTS = {
     "moe_row": [["Replicate", None], ["Shard", 3]],
     "dense_h6": [["Shard", 1], ["Shard", 2]],
     "dense_v511": [["Shard", 1], ["Shard", 3]],
+    "moe_cap": [["Shard", 1], ["Shard", 3]],
+    "moe_cap_drop": [["Shard", 1], ["Shard", 3]],
+    "moe_cap_ep": [["Shard", 1], ["Shard", 3]],
+    "moe_cap_ep_drop": [["Shard", 1], ["Shard", 3]],
 }
 
 
 def config(name):
+    if name.startswith("moe_cap"):
+        return get_config("deepseek-v2-lite-16b").reduced().replace(
+            moe_dispatch="capacity",
+            capacity_factor=0.5 if name.endswith("drop") else 1.25,
+            moe_ep_constraint="_ep" in name)
+    if name == "chunk_mla":
+        return get_config("deepseek-v2-lite-16b").reduced().replace(
+            ref_attention="chunked")
+    if name.startswith("chunk_"):
+        return get_config("llama3-3b").reduced().replace(
+            num_kv_heads=2, ref_attention="chunked",
+            attention_window=256 if name == "chunk_window" else 0)
     if name == "hybrid":
         return get_config("recurrentgemma-9b").reduced()
     if name in ("moe", "moe_row"):
@@ -418,8 +511,40 @@ def watched(params):
     if "units" not in params and "attn" in params["layers"][0]:
         out.append(params["layers"][0]["attn"].get("wk"))
     if "moe" in params.get("layers", [{}])[0]:
-        out.append(params["layers"][0]["moe"]["w_gate"])
+        out += [params["layers"][0]["moe"]["w_gate"],
+                params["layers"][0]["moe"]["router"]]
     return [p for p in out if p is not None]
+
+
+def long_tokens(cfg, B):
+    """The (B, CHUNKED_SEQ) prompt of a chunked prefill."""
+    return torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, CHUNKED_SEQ), dtype=np.int32))
+
+
+def kept_set(cfg, params, mesh=None):
+    """The assignments (B, S, K) that the capacity dispatch of the first MoE
+    layer's weights keeps for x (4, 16, d), drawn from a seed: placed on
+    ``mesh`` (``parallel.moe_capacity``, its rows over the data axis) where
+    one is given, else plain (``blocks.capacity_experts``)."""
+    from repro_torch.distributed import parallel
+    from repro_torch.models import blocks
+    p = params["layers"][0]["moe"]
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 16, cfg.d_model)).astype(np.float32))
+    C = blocks.moe_capacity(cfg, 4 * 16)
+    if mesh is not None:
+        x = with_sharding(x, batch_pspec(mesh, 4, extra_dims=2), mesh)
+    _, top_w, top_idx = blocks.route(p, cfg, x)
+    experts = (p["w_gate"], p["w_in"], p["w_out"])
+    if mesh is None:
+        return blocks.capacity_experts(x, top_w, top_idx, *experts,
+                                       blocks.WholeBuffer(cfg.num_experts,
+                                                          C))[1]
+    _, keep = parallel.moe_capacity(x, top_w, top_idx, *experts,
+                                    capacity=C,
+                                    split_rows=cfg.moe_ep_constraint)
+    return keep.full_tensor()
 
 
 def first_kv(cache):
@@ -446,6 +571,22 @@ def test_sharded_ssm_and_one_row_mla_match_plain_on_four_gloo_ranks(
     check_on_four_gloo_ranks(tmp_path, MORE_CONFIGS)
 
 
+def test_placed_capacity_dispatch_matches_plain_on_four_gloo_ranks(
+        tmp_path):
+    """The capacity dispatch placed: the loss, the gradients (the router's
+    and an expert weight's among them), the prefill and decode logits and
+    the kept set of the plain step, at both capacity factors (0.5 drops
+    assignments) and with and without the expert-parallel constraint."""
+    check_on_four_gloo_ranks(tmp_path, CAPACITY_CONFIGS)
+
+
+def test_placed_chunked_prefill_matches_plain_on_four_gloo_ranks(tmp_path):
+    """A prefill of CHUNKED_SEQ tokens through the chunked reference
+    attention on placed tensors (every layer's attention, on each rank's
+    heads) gives the plain prefill's logits and first cache leaf."""
+    check_on_four_gloo_ranks(tmp_path, CHUNKED)
+
+
 def check_on_four_gloo_ranks(tmp_path, names):
     out, port = str(tmp_path / "ranks.json"), _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -464,6 +605,24 @@ def check_on_four_gloo_ranks(tmp_path, names):
         cfg, B = config(name), BATCH.get(name, 4)
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0))
+        if name in CHUNKED:
+            # every layer's attention ran chunked, through a placed op
+            want = "_mla_chunked" if cfg.use_mla else "_chunked_attention"
+            assert res["routed"] == [want] * cfg.num_layers, name
+            with torch.no_grad():
+                lg, pre = model.prefill(params, long_tokens(cfg, B),
+                                        max_len=CHUNKED_SEQ)
+            for got_t, w in zip(res["chunked"], (lg, first_kv(pre))):
+                np.testing.assert_allclose(got_t, w.numpy(), rtol=FP32,
+                                           atol=FP32, err_msg=name)
+            continue
+        if cfg.moe_dispatch == "capacity":
+            with torch.no_grad():
+                want = kept_set(cfg, params)
+            assert res["kept"] == want.tolist(), name
+            # the tight capacity drops some assignments
+            assert want.any() and not (name.endswith("drop")
+                                       and want.all())
         for p in tree_tensors(params):
             p.requires_grad_(True)
         rng = np.random.default_rng(0)
@@ -619,4 +778,86 @@ def test_placed_decode_on_one_rank_equals_plain():
     finally:
         dist.destroy_process_group()
     assert len(placed) == 5
+    assert all(torch.equal(a, b) for a, b in zip(placed, plain))
+
+
+@pytest.mark.parametrize("ep", [False, True])
+def test_placed_capacity_step_on_one_rank_equals_plain_step(ep):
+    """The CPU rehearsal of ``chip_smoke.py`` phase 9 (b): the MLA/MoE
+    model's train step with the capacity dispatch (without and with the
+    expert-parallel constraint), on params and AdamW state placed on a 1x1
+    mesh, equals the plain step bit for bit, the updated leaves and the
+    metrics; the dry-run's donated form of it (``build_lowering(...,
+    donate=True)``) is the step itself, and the undonated form leaves the
+    caller's tensors as they were."""
+    cfg = get_config("deepseek-v2-lite-16b").reduced().replace(
+        moe_dispatch="capacity", capacity_factor=0.5, moe_ep_constraint=ep)
+    model = build_model(cfg)
+    batch = to_device(next(synthetic_token_batches(cfg.vocab_size, 4, 16,
+                                                   seed=0)), "cpu")
+    step = make_train_step(model)
+    params = model.init(torch.Generator().manual_seed(0))
+    params, opt, m = step(params, init_adamw(params), batch)
+    plain = [t.detach().clone() for t in tree_tensors((params, opt, m))]
+
+    from repro_torch.configs.shapes import InputShape
+    shape = InputShape("train_4x16", 16, 4, "train")
+    _one_rank_group()
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        placed = {}
+        for donate in (True, False):
+            fn, _ = dryrun.build_lowering(
+                "deepseek-v2-lite-16b", "train_4k", mesh, cfg_override=cfg,
+                shape=shape, donate=donate)
+            params = model.init(torch.Generator().manual_seed(0))
+            p_specs = param_pspecs(params, mesh)
+            args = (with_sharding(params, p_specs, mesh),
+                    with_sharding(init_adamw(params),
+                                  dryrun.param_pspecs_like_opt(
+                                      init_adamw(params), p_specs), mesh),
+                    {k: with_sharding(v, batch_pspec(mesh, 4), mesh)
+                     for k, v in batch.items()})
+            before = [t.to_local().clone() if isinstance(t, DTensor)
+                      else t.clone() for t in tree_tensors(args[:2])]
+            out = fn(*args)
+            placed[donate] = [t.to_local() if isinstance(t, DTensor) else t
+                              for t in tree_tensors(out)]
+            after = [t.to_local() if isinstance(t, DTensor) else t
+                     for t in tree_tensors(args[:2])]
+            kept = [torch.equal(a, b) for a, b in zip(before, after)]
+            # donated: the params and moments written in place; else left
+            assert all(kept) != donate
+    finally:
+        dist.destroy_process_group()
+    for got in placed.values():
+        assert len(got) == len(plain)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def test_placed_chunked_prefill_on_one_rank_equals_plain():
+    """The CPU rehearsal of phase 9 (b)'s chunked prefill: a prefill of
+    CHUNKED_SEQ tokens through the chunked reference attention, on params
+    placed on a 1x1 mesh, gives the plain prefill's logits and cache bit
+    for bit."""
+    cfg = get_config("llama3-3b").reduced().replace(ref_attention="chunked")
+    model = build_model(cfg)
+    toks = long_tokens(cfg, 2)
+    with torch.no_grad():
+        plain = list(tree_tensors(model.prefill(
+            model.init(torch.Generator().manual_seed(0)), toks,
+            max_len=CHUNKED_SEQ)))
+    _one_rank_group()
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        with torch.no_grad(), implicit_replication():
+            out = model.prefill(
+                with_sharding(params, param_pspecs(params, mesh), mesh),
+                with_sharding(toks, batch_pspec(mesh, 2), mesh),
+                max_len=CHUNKED_SEQ)
+        placed = [t.full_tensor() for t in tree_tensors(out)]
+    finally:
+        dist.destroy_process_group()
+    assert len(placed) == len(plain)
     assert all(torch.equal(a, b) for a, b in zip(placed, plain))

@@ -63,6 +63,11 @@ for fn in (distributed.param_pspecs, distributed.cache_pspecs,
            mesh.make_production_mesh, mesh.make_debug_mesh,
            dryrun.build_lowering, dryrun.run_one, dryrun.main):
     assert callable(fn)
+# the §Perf variants: the placed capacity dispatch and the costing API
+from repro_torch.distributed import parallel
+for fn in (parallel.moe_capacity, blocks.capacity_experts,
+           dryrun.cost_extrapolated, dryrun._cost_variant):
+    assert callable(fn)
 assert not torch_dist.is_initialized(), "a module set up a process group"
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("repro", "jax") or m.startswith(("repro.", "jax."))))

@@ -13,7 +13,8 @@ the port's dry-run (``repro_torch.launch.dryrun.run_one``, meta tensors
 over a ``fake`` group as wide as the mesh) must count at most
 ``dryrun.JAX_FLOPS_BOUND`` (1.25) x the JAX package's FLOPs a rank, at
 most 2 x its collective bytes and at most ``dryrun.JAX_TEMP_BOUND`` (1.5)
-x its ``temp_size_bytes``, on the JAX package's argument bytes (the rules
+x its ``temp_size_bytes`` (and as much x the ``u2_temp_bytes`` of its
+block, the u = 2 variant's), on the JAX package's argument bytes (the rules
 place the same shards) but for the two departures ``PERF.md`` names. The
 FLOPs a rank are matmul FLOPs in the port and every op's in XLA, so the
 port may count fewer. Some rows hold more (``TIGHTER``): Mamba-2's
@@ -128,7 +129,7 @@ def port_only_bytes(arch, shape, devices):
 def test_placed_step_splits_as_the_jax_package(arch, shape, mesh):
     ref = golden()[(arch, shape, mesh)]
     r = dryrun.run_one(arch, shape, multi_pod=mesh == "2x16x16",
-                       verbose=False)
+                       verbose=False, extrapolate=True)
     assert r["mesh"] == mesh and r["devices"] == ref["devices"]
     ext = ref["extrapolated"]
     assert r["flops"] <= dryrun.JAX_FLOPS_BOUND * ext["flops"], (
@@ -142,6 +143,9 @@ def test_placed_step_splits_as_the_jax_package(arch, shape, mesh):
     temp, ref_temp = (r["memory"]["temp_size_bytes"],
                       ref["memory"]["temp_size_bytes"])
     assert temp <= dryrun.JAX_TEMP_BOUND * ref_temp, (temp, ref_temp)
+    # the u = 2 variant's temp bytes, as the JAX package's block holds them
+    u2, ref_u2 = (r["extrapolated"]["u2_temp_bytes"], ext["u2_temp_bytes"])
+    assert u2 <= dryrun.JAX_TEMP_BOUND * ref_u2, (u2, ref_u2)
     for what, bound in TIGHTER.get((arch, shape, mesh), {}).items():
         # the JAX package's all-gathers and collective-permutes both
         # bring a rank what it lacks
