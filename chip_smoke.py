@@ -302,6 +302,9 @@ CHUNK_ARCH, CHUNK_BATCH, CHUNK_SEQ = "llama3-3b", 8, 1024
 # package's costs of it
 VARIANT = ("deepseek-v2-lite-16b", "train_4k", "capacity_moe_ep")
 VARIANT_GOLDEN = os.path.join(HERE, "tests", "golden_variants_jax.json")
+# and its collective bytes by kind, pinned to the byte: the CPU tests' count
+# (every collective one a placed op states, so the same on every release)
+VARIANT_PINNED = os.path.join(HERE, "tests", "pinned_port_collectives.json")
 # the graphed decode step's median of each AGFT serve run, by (model,
 # dispatch): phase 9 prints the capacity dispatch's beside phase 4's
 STEP_MS = {}
@@ -2727,9 +2730,16 @@ def variant_dryrun():
     holds it: FLOPs a rank within ``dryrun.JAX_FLOPS_BOUND`` x, collective
     bytes within 2 x, ``u2_temp_bytes`` within ``dryrun.JAX_TEMP_BOUND`` x,
     and the FLOPs an even split of the whole step's within
-    ``dryrun.JAX_FLOPS_BOUND``."""
+    ``dryrun.JAX_FLOPS_BOUND``; its collective bytes, by kind, equal to the
+    byte the CPU's (VARIANT_PINNED), none issued by DTensor's own dispatch.
+    Prints the table of them by site (``tools/dryrun_sites.py``'s) first."""
+    import torch
     from repro_torch.launch import dryrun
     arch, shape, variant = VARIANT
+    with open(VARIANT_PINNED) as f:
+        pinned = next(r["collective_bytes"] for r in json.load(f)["rows"]
+                      if (r["arch"], r["shape"], r["variant"], r["mesh"])
+                      == VARIANT + ("16x16",))
     with open(VARIANT_GOLDEN) as f:
         ref = next(r for r in json.load(f)["results"]
                    if (r["arch"], r["shape"], r["variant"]) == VARIANT)
@@ -2737,6 +2747,17 @@ def variant_dryrun():
     t0 = time.perf_counter()
     got = dryrun.cost_extrapolated(arch, shape, (16, 16),
                                    lambda c: c.replace(**fields))
+    # the table ``tools/dryrun_sites.py --side port`` prints
+    say(f"  (c) collective bytes by site, torch {torch.__version__}:\n"
+        + dryrun.sites_table(got["collective_sites"]))
+    own = sum(r[-1] for r in got["collective_sites"]
+              if r[3].startswith(dryrun.DTENSOR_SITE))
+    if got["collective_bytes"] != pinned or own:
+        fail(f"{arch} x {shape} x {variant}: collective bytes "
+             f"{got['collective_bytes']} on torch {torch.__version__}, the "
+             f"CPU's {pinned}; {own} B from DTensor's own dispatch")
+    say(f"  (c) collective bytes by kind equal the CPU's to the byte on "
+        f"torch {torch.__version__}: {got['collective_bytes']}")
     ratios = {"flops": got["flops"] / ref["flops"],
               "collective bytes": got["collective_bytes"]["total"]
               / ref["collective_bytes"]["total"],

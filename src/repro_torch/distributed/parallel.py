@@ -29,13 +29,16 @@ batch on the data axes and replicated over "model".
   partial (max, sum, product). Where the data axes leave the batch whole
   (long_500k's one row), MLA's decode attends a part of the slots on each
   of their ranks (``split_slots``).
-* ``local_conv``, ``moe_experts``, ``moe_capacity``, ``ssd_heads``,
-  ``rms_norm``: the depthwise conv on each rank's channels, the dense and
-  the capacity expert dispatch on each rank's experts (the capacity
+* ``local_conv``, ``route``, ``moe_experts``, ``moe_capacity``,
+  ``ssd_heads``, ``rms_norm``: the depthwise conv on each rank's channels,
+  the MoE router on each rank's rows, the dense and the capacity expert
+  dispatch on each rank's experts (the dense one's partial sums, the
+  shared experts' among them, reduced once in fp32; the capacity
   dispatch's routing that of the whole batch; with the EP constraint its
   buffer's rows split over the data axes too), the SSD on each rank's
-  heads, an RMSNorm over a split dim; ``ssd_parts``: Mamba-2's fused columns exchanged so that
-  each rank holds what its heads read.
+  heads, an RMSNorm over a split dim; ``ssd_parts``: Mamba-2's fused
+  columns exchanged so that each rank holds what its heads read;
+  ``batch_mean``: a mean over the batch's rows (the load-balance loss).
 * ``vocab_parallel_nll``: the cross entropy of logits sharded over the
   vocab (``logits_pspec``), Megatron's vocab-parallel form: three
   all-reduces of (B, S) over the vocab's mesh dims; the logits are never
@@ -50,7 +53,12 @@ batch on the data axes and replicated over "model".
 Gradients: each function brings the gradient of each input to the input's
 own placement where it leaves (``_grad_to``): an activation's partial
 sums over "model" are all-reduced there, a weight's over the batch's mesh
-dims. A mesh dim of size 1 holds no partial sum and moves nothing.
+dims. A mesh dim of size 1 holds no partial sum and moves nothing. AdamW
+brings the rest (a norm's weight, left a partial sum by DTensor's own
+rules) to its param's placement (``placed_as``) and sums the norm's
+squares over each gradient's own split (``global_norm``). No collective of
+a placed step is left to DTensor's own sharding propagation
+(``launch.dryrun.collective_site`` tells them apart).
 """
 from __future__ import annotations
 
@@ -583,30 +591,166 @@ def rms_norm(x: DTensor, weight: torch.Tensor, eps: float) -> DTensor:
                       (lanes, s_grad, w_grad), mesh)(x, ss, _grad_to(weight))
 
 
-def moe_experts(fn, x: DTensor, combine: DTensor, w_gate, w_in, w_out):
-    """``fn(x, combine, w_gate, w_in, w_out)`` (the dense dispatch's expert
-    products: x (B, S, d), combine (B, S, E), expert weights (E, ...)) ->
-    (B, S, d) fp32, on each rank's rows and experts (expert-parallel over
-    the mesh dims that split the experts), the partial sums all-reduced."""
+def fuses_shared(w_gate: DTensor, shared: dict) -> bool:
+    """Whether the shared experts' weights (``w_gate``, ``w_in`` (d, F),
+    ``w_out`` (F, d)) split F over the mesh dims of size > 1 that split the
+    experts (``w_gate`` (E, d, F)), and over no other: then each rank's part
+    of the shared experts' product is a partial sum over the same dims as
+    its experts' (``moe_experts`` adds the two before one reduce)."""
+    mesh = w_gate.device_mesh
+
+    def split(w, dim):
+        if not isinstance(w, DTensor):
+            return None
+        if any(mesh.size(i) > 1 and _is_shard(p) and p.dim != dim
+               for i, p in enumerate(w.placements)):
+            return None
+        return {i for i in _shard_dims(w.placements, dim) if mesh.size(i) > 1}
+
+    experts = split(w_gate, 0)
+    return bool(experts) and all(
+        split(shared[name], dim) == experts
+        for name, dim in (("w_gate", 1), ("w_in", 1), ("w_out", 0)))
+
+
+def moe_experts(fn, x: DTensor, combine: DTensor, w_gate, w_in, w_out,
+                *shared):
+    """``fn(x, combine, w_gate, w_in, w_out, *shared)`` (the dense
+    dispatch's expert products: x (B, S, d), combine (B, S, E), expert
+    weights (E, ...); with ``shared``, the shared experts' (w_gate, w_in,
+    w_out), which ``fuses_shared`` holds, their product added) -> (B, S, d)
+    fp32, on each rank's rows and experts (expert-parallel over the mesh
+    dims that split the experts) and its columns of the shared experts'
+    hidden layer, the partial sums all-reduced once, in fp32: the one
+    reduce the JAX package's partitioned program makes of an MoE layer's
+    output. x's gradient, a partial sum of the experts' and the shared
+    experts' parts, is all-reduced once too."""
     mesh = _mesh_of(x, w_gate)
     x, combine = _as_dtensor(x, mesh), _as_dtensor(combine, mesh)
-    ws = [_as_dtensor(w, mesh) for w in (w_gate, w_in, w_out)]
+    ws = [_as_dtensor(w, mesh) for w in (w_gate, w_in, w_out) + shared]
     rows = _rows(x, x.ndim - 1)
     experts = [i for i, p in enumerate(ws[0].placements) if _is_shard(p, 0)]
     c_in = [Shard(2) if i in experts else r for i, r in enumerate(rows)]
     x_grad = [_partial(mesh, i) if i in experts else r
               for i, r in enumerate(rows)]
-    w_grad = [Shard(0) if i in experts else
-              (_partial(mesh, i) if _is_shard(r) else Replicate())
-              for i, r in enumerate(rows)]
+
+    def split(dim):
+        """A weight split on ``dim`` over the experts' mesh dims: its
+        placements, and its gradient's (partial over the batch's)."""
+        into = [Shard(dim) if i in experts else Replicate()
+                for i in range(mesh.ndim)]
+        grad = [Shard(dim) if i in experts else
+                (_partial(mesh, i) if _is_shard(r) else Replicate())
+                for i, r in enumerate(rows)]
+        return into, grad
+    w_in_pl, w_grad = split(0)
+    ins, grads = [w_in_pl] * 3, [w_grad] * 3
+    if shared:
+        (col, col_grad), (row, row_grad) = split(1), split(0)
+        ins += [col, col, row]
+        grads += [col_grad, col_grad, row_grad]
     out = [_partial(mesh, i) if i in experts else r
            for i, r in enumerate(rows)]
-    w_in_pl = [Shard(0) if i in experts else Replicate()
-               for i in range(mesh.ndim)]
-    run = _local_map(fn, out, (rows, c_in, w_in_pl, w_in_pl, w_in_pl),
-                     (x_grad, c_in, w_grad, w_grad, w_grad), mesh)
+    run = _local_map(fn, out, (rows, c_in) + tuple(ins),
+                     (x_grad, c_in) + tuple(grads), mesh)
     return _reduced(run(_grad_to(x), _grad_to(combine),
                         *(_grad_to(w) for w in ws)))
+
+
+def route(fn, x: DTensor, router, top_k: int):
+    """``fn(x, router, top_k)``, an MoE router (x (B, S, d) and its weight
+    (d, E) -> the probabilities, top-k weights and experts, each
+    (B, S, .)), on each rank's rows: every rank of "model" routes its rows
+    whole, as each needs all of their experts' weights, and the softmax,
+    the sort and their gradients stay local. x's gradient is then whole on
+    each of those ranks; the router's is a partial sum over the mesh dims
+    that split the batch."""
+    mesh = _mesh_of(x, router)
+    x, router = _as_dtensor(x, mesh), _as_dtensor(router, mesh)
+    rows = _rows(x, x.ndim - 1)
+    whole = [Replicate()] * mesh.ndim
+    w_grad = [_partial(mesh, i) if _is_shard(r) else Replicate()
+              for i, r in enumerate(rows)]
+    run = _local_map(fn, (rows, rows, rows), (rows, whole, None),
+                     (rows, w_grad, None), mesh)
+    return run(_grad_to(x), _grad_to(router), top_k)
+
+
+def batch_mean(t: DTensor, dims: Tuple[int, ...]):
+    """``t.mean(dims)`` of a DTensor whose split over the batch's mesh dims
+    (of size > 1) is a split of ``dims[0]``, the rest of ``dims`` whole:
+    each rank's mean of its rows over the ranks' count, summed by one
+    all-reduce. Where no such mesh dim splits ``t``, DTensor's own mean,
+    which moves nothing."""
+    mesh = t.device_mesh
+    split = [i for i in _shard_dims(t.placements, dims[0])
+             if mesh.size(i) > 1]
+    if not split:
+        return t.mean(dim=dims)
+    assert all(isinstance(p, Replicate) or _is_shard(p, dims[0])
+               for p in t.placements), t.placements
+    n = 1
+    for i in split:
+        n *= mesh.size(i)
+    rows = list(t.placements)
+    out = [Partial() if i in split else Replicate()
+           for i in range(mesh.ndim)]
+    mean = _local_map(lambda a: a.mean(dim=dims) / n, out, (rows,), (rows,),
+                      mesh)(t)
+    return _reduced(mean)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The l2 norm over every DTensor of ``tree`` (gradients, each placed
+    as its param: split or whole, no partial sum), as one replicated
+    DTensor: each leaf's local sum of squares, those split over the same
+    mesh dims summed in leaf order and all-reduced over those dims, and
+    the groups' sums added. With nothing split over more than one rank,
+    the sums in leaf order of ``optimizer.global_norm``, and no
+    collective."""
+    from repro_torch.models.common import tree_tensors
+
+    leaves = list(tree_tensors(tree))
+    mesh = leaves[0].device_mesh
+    groups = {}
+    for g in leaves:
+        dims = tuple(i for i, p in enumerate(g.placements)
+                     if _is_shard(p) and mesh.size(i) > 1)
+        sq = torch.sum(torch.square(g.to_local().float()))
+        groups[dims] = groups[dims] + sq if dims in groups else 0 + sq
+    total = 0
+    for dims, sq in groups.items():
+        for i in dims:
+            sq = funcol.all_reduce(sq, "sum", (mesh, i))
+        total = total + sq
+    return DTensor.from_local(torch.sqrt(total), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
+
+
+def placed_as(ts, likes) -> list:
+    """Each DTensor of ``ts`` brought to the placements of its counterpart
+    in ``likes`` (trees of one structure: gradients and their params, or a
+    state and the cache it is written into): over a mesh dim of more than
+    one rank by a redistribute (a partial sum that DTensor's own rules
+    left, a norm's weight's summed over the batch's rows, is all-reduced;
+    rows split where the cache holds them whole are gathered), over one of
+    one rank relabelled (nothing to move)."""
+    from repro_torch.models.common import tree_tensors
+
+    out = []
+    for t, like in zip(tree_tensors(ts), tree_tensors(likes)):
+        if isinstance(t, DTensor) and tuple(t.placements) != tuple(
+                like.placements):
+            mesh = t.device_mesh
+            moved = [q if mesh.size(i) > 1 else tp for i, (q, tp) in
+                     enumerate(zip(like.placements, t.placements))]
+            t = t.redistribute(mesh, moved)
+            if tuple(moved) != tuple(like.placements):
+                t = DTensor.from_local(t.to_local(), mesh, like.placements,
+                                       run_check=False, shape=t.shape,
+                                       stride=t.stride())
+        out.append(t)
+    return out
 
 
 class _Across(torch.autograd.Function):

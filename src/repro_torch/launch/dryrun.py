@@ -17,7 +17,11 @@ run is the proof. It reports, with the JAX package's keys:
   apart (no fusion; views excluded);
 * ``collective_bytes``: result bytes of the functional collectives
   (``_c10d_functional.*``) that DTensor issues, an all-reduce counted twice,
-  as the JAX package counts them in its HLO (``collective_bytes``);
+  as the JAX package counts them in its HLO (``collective_bytes``), and
+  ``collective_sites``, the same bytes by kind, dtype, phase and the
+  port's op that issued them (``StepCounter.collective_sites``; a row
+  whose site starts with ``DTENSOR_SITE`` is a collective that DTensor's
+  own sharding propagation chose, which no placed step should need);
 * ``memory``: one rank's bytes of the arguments and of the outputs, from
   the local shapes, and ``temp_size_bytes``, the counterpart of XLA's
   temp buffer: the peak, over the step, of the bytes in live storages
@@ -60,6 +64,7 @@ import contextlib
 import json
 import os
 import re
+import sys
 import time
 import weakref
 
@@ -134,6 +139,80 @@ _FUNCOL_KIND = (("all_reduce", "all-reduce"), ("all_gather", "all-gather"),
 _FAKE = torch._C._TorchDispatchModeKey.FAKE
 _LIFT_FRESH = torch.ops.aten.lift_fresh.default
 
+# the port's own source tree, and the two files of this module and the
+# training loop that lie outside any placed op
+_PORT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_OUTER = {os.path.abspath(__file__),
+          os.path.join(_PORT, "training", "train_loop.py")}
+# where DTensor's sharding propagation redistributes an op's inputs: a
+# collective issued below it is DTensor's own, not a placement the port
+# states
+_DISPATCH = os.path.join("torch", "distributed", "tensor", "_dispatch.py")
+_CHECKPOINT = os.path.join("torch", "utils", "checkpoint.py")
+DTENSOR_SITE = "DTensor's own dispatch"
+_PATHS: dict = {}
+
+
+def _path(code) -> str:
+    """The absolute path of ``code``'s file (sys.path may hold a relative
+    ``src``)."""
+    path = _PATHS.get(code.co_filename)
+    if path is None:
+        path = _PATHS[code.co_filename] = os.path.abspath(code.co_filename)
+    return path
+
+
+def _frame_name(code, line: int) -> str:
+    return f"{os.path.relpath(_path(code), _PORT)}:{line} {code.co_name}"
+
+
+def collective_site(depth: int = 2) -> tuple:
+    """(phase, site, own) of a collective being issued, read off the Python
+    stack: ``phase`` "forward", "backward" or "recompute" (a checkpointed
+    layer run again in the backward pass); ``site`` the ``depth``
+    innermost frames of the port's placed ops (outside this module and the
+    training loop; generator expressions skipped), innermost first, or,
+    in the backward pass where no such frame is on the stack, the autograd
+    node that runs; in the backward pass under anomaly mode, followed by
+    the frames that made that node in the forward pass ("of ..."); ``own``
+    True where DTensor's dispatch of an op (its sharding propagation)
+    issued it rather than a placement the port states."""
+    frames, own, recompute = [], False, False
+    f = sys._getframe(1)
+    while f is not None:
+        path = _path(f.f_code)
+        if path.startswith(_PORT) and path not in _OUTER:
+            if len(frames) < depth and f.f_code.co_name != "<genexpr>":
+                frames.append(_frame_name(f.f_code, f.f_lineno))
+        elif not frames and path.endswith(_DISPATCH):
+            own = True
+        if path.endswith(_CHECKPOINT):
+            recompute = True
+        f = f.f_back
+    node = torch._C._current_autograd_node()
+    phase = ("forward" if node is None else
+             "recompute" if recompute else "backward")
+    if not frames:
+        frames = [node.name() if node is not None else "(no port frame)"]
+    if phase == "backward":
+        # under ``torch.autograd.detect_anomaly`` a node keeps the stack
+        # that made it in the forward pass
+        made = [line for line in node.metadata.get("traceback_", ())
+                if line.lstrip().startswith(f'File "{_PORT}')
+                and not any(f'"{p}"' in line for p in _OUTER)
+                and "in <genexpr>" not in line]
+        frames += [_traced(line) for line in reversed(made)][:depth + 1]
+    return phase, " < ".join(frames), own
+
+
+_TRACED = re.compile(r'File "([^"]+)", line (\d+), in (\S+)')
+
+
+def _traced(line: str) -> str:
+    """"file:line function" of a line of ``traceback.format_stack``."""
+    path, no, fn = _TRACED.search(line).groups()
+    return f"of {os.path.relpath(path, _PORT)}:{no} {fn}"
+
 
 def _nbytes(tree) -> int:
     if isinstance(tree, torch.Tensor):
@@ -158,18 +237,21 @@ class StepCounter(TorchDispatchMode):
     live total just after the i-th allocation; the total only falls
     between allocations, so these are the peaks. ``settle(out)`` then
     reads ``temp_bytes`` (the peak of the live bytes outside the step's
-    outputs), ``peak_bytes`` (outputs included) and ``new_output_bytes``
-    (the outputs' storages that the step allocated)."""
+    outputs; ``temp_at`` the allocation that sets it), ``peak_bytes``
+    (outputs included) and ``new_output_bytes`` (the outputs' storages that
+    the step allocated; ``output_allocs`` their allocations)."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.bytes_accessed = 0
         self.collectives = {kind: 0 for _, kind in _FUNCOL_KIND}
+        self.sites = {}                 # (kind, dtype, phase, site, own)
         self.live_bytes = 0
         self.after = array.array("q")
         self._live = {}                 # storage cdata -> (i, bytes, ref)
         self.temp_bytes = self.peak_bytes = self.new_output_bytes = None
+        self.temp_at, self.output_allocs = None, set()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -190,8 +272,11 @@ class StepCounter(TorchDispatchMode):
             name = func.__name__
             for key, kind in _FUNCOL_KIND:
                 if name.startswith(key):
-                    self.collectives[kind] += _nbytes(out) * (
-                        2 if kind == "all-reduce" else 1)
+                    n = _nbytes(out) * (2 if kind == "all-reduce" else 1)
+                    self.collectives[kind] += n
+                    dtype = str(next(tree_tensors(out)).dtype)[6:]
+                    where = (kind, dtype) + collective_site()
+                    self.sites[where] = self.sites.get(where, 0) + n
             return out
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs,
@@ -247,11 +332,37 @@ class StepCounter(TorchDispatchMode):
         self.temp_bytes = int(max(outside.max(initial=0), 0))
         self.peak_bytes = int(after.max(initial=0))
         self.new_output_bytes = int(sizes.sum())
+        # which allocation sets ``temp_bytes``, and which are the outputs
+        self.temp_at = int(outside.argmax()) if len(outside) else None
+        self.output_allocs = set(np.flatnonzero(sizes).tolist())
 
     def collective_bytes(self) -> dict:
         out = dict(self.collectives)
         out["total"] = sum(out.values())
         return out
+
+    def collective_sites(self) -> list:
+        """The collective bytes by (kind, dtype, phase, site, own), as
+        ``collective_site`` reads them: rows [kind, dtype, phase, site,
+        bytes], largest first; ``DTENSOR_SITE`` (its site the port's frames
+        that reached it, in brackets) where DTensor's own dispatch issued
+        them."""
+        rows = [[kind, dtype, phase,
+                 f"{DTENSOR_SITE} [{site}]" if own else site, n]
+                for (kind, dtype, phase, site, own), n in self.sites.items()]
+        return sorted(rows, key=lambda r: (-r[4], r[:4]))
+
+
+def sites_table(rows) -> str:
+    """``collective_sites`` rows as a markdown table (bytes of one rank),
+    then the bytes that DTensor's own dispatch issued."""
+    lines = ["| kind | dtype | phase | site | bytes |",
+             "| --- | --- | --- | --- | --- |"]
+    lines += [f"| {kind} | {dtype} | {phase} | `{site}` | {n:.4e} |"
+              for kind, dtype, phase, site, n in rows]
+    own = sum(r[-1] for r in rows if r[3].startswith(DTENSOR_SITE))
+    lines.append(f"{DTENSOR_SITE}: {own} B")
+    return "\n".join(lines)
 
 
 # ---------------------------------------------------------------------------
@@ -417,6 +528,7 @@ def _count_cost(arch, shape_name, mesh, cfg, donate: bool = False,
     return {"flops": counter.flops, "flops_global": flops_global,
             "bytes": counter.bytes_accessed,
             "coll": counter.collective_bytes(),
+            "sites": counter.collective_sites(),
             "temp_bytes": counter.temp_bytes, "arg_bytes": arg_bytes,
             "out_bytes": out_bytes}
 
@@ -430,6 +542,7 @@ def _extrapolated(arch, shape_name, mesh, cfg, full: dict,
     return {"flops": full["flops"], "flops_global": full["flops_global"],
             "bytes_accessed": full["bytes"],
             "collective_bytes": dict(full["coll"]),
+            "collective_sites": full["sites"],
             "scan_length": _scan_length(cfg),
             "u2_temp_bytes": u2["temp_bytes"],
             "u2_arg_bytes": u2["arg_bytes"],
@@ -499,16 +612,17 @@ def fake_process_group(world_size: int):
         dist.destroy_process_group()
 
 
-def count_step(fn, args):
-    """Run ``fn(*args)`` once under a ``StepCounter``: (its output, the
-    counter, settled against that output)."""
+def count_step(fn, args, counter=None):
+    """Run ``fn(*args)`` once under ``counter`` (a new ``StepCounter`` by
+    default): (its output, the counter, settled against that output)."""
     # the first call of a function under ``torch._disable_dynamo`` (a meta
     # ``arange``, ``torch.utils.checkpoint``) imports ``torch._dynamo``,
     # whose frames, left in a reference cycle, hold the caller's tensors
     # until the collector runs: imported first, the count does not depend
     # on whether the step is the process's first
     import torch._dynamo  # noqa: F401
-    with StepCounter() as counter:
+    counter = counter or StepCounter()
+    with counter:
         out = fn(*args)
     counter.settle(out)
     return out, counter
@@ -538,6 +652,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "flops_global": full["flops_global"],
         "bytes_accessed": full["bytes"],
         "collective_bytes": full["coll"],
+        "collective_sites": full["sites"],
         "memory": {
             "argument_size_bytes": full["arg_bytes"],
             "output_size_bytes": full["out_bytes"],

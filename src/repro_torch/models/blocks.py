@@ -122,13 +122,28 @@ def route(p, cfg: ModelConfig, x: torch.Tensor):
     the lower expert comes first, as ``jax.lax.top_k`` takes them: a stable
     descending sort, cut to K. No caller draws the router's jitter (the
     JAX package's models pass no key for it either)."""
-    K = cfg.top_k
-    logits = matmul(x, p["router"].to(x.dtype)).float()          # (B,S,E)
+    if is_dtensor(x):
+        from repro_torch.distributed import parallel
+        return parallel.route(_route, x, p["router"], cfg.top_k)
+    return _route(x, p["router"], cfg.top_k)
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, K: int):
+    logits = (x @ router.to(x.dtype)).float()                    # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_idx = vals[..., :K], idx[..., :K]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     return probs, top_w, top_idx
+
+
+def _batch_mean(t: torch.Tensor, dims) -> torch.Tensor:
+    """``t.mean(dims)``; a placed ``t`` averages each rank's rows
+    (``distributed.parallel.batch_mean``)."""
+    if is_dtensor(t):
+        from repro_torch.distributed import parallel
+        return parallel.batch_mean(t, dims)
+    return t.mean(dim=dims)
 
 
 def _router_entropy(probs: torch.Tensor) -> torch.Tensor:
@@ -161,23 +176,33 @@ def moe_forward_dense(p, cfg: ModelConfig, x: torch.Tensor
     onehot = (top_idx[..., None] == torch.arange(E, device=x.device)).float()
     combine = (onehot * top_w[..., None]).sum(-2)                # (B,S,E)
     experts = (p["w_gate"], p["w_in"], p["w_out"])
+    shared = ()
     if is_dtensor(x):
         from repro_torch.distributed import parallel
-        y = parallel.moe_experts(_dense_experts, x, combine, *experts)
+        if "shared" in p and parallel.fuses_shared(p["w_gate"], p["shared"]):
+            # the shared experts' partial sums join the experts' reduce
+            shared = tuple(p["shared"][n] for n in ("w_gate", "w_in",
+                                                    "w_out"))
+        y = parallel.moe_experts(_dense_experts, x, combine, *experts,
+                                 *shared)
     else:
         y = _dense_experts(x, combine, *experts)
-    y = _with_shared(p, cfg, y.to(x.dtype), x)
+    y = y.to(x.dtype)
+    if not shared:
+        y = _with_shared(p, cfg, y, x)
     # Switch-style load-balance loss: E * sum_e f_e * P_e
-    f = (combine > 0).float().mean(dim=(0, 1))                   # routed share
-    lb = E * torch.sum(f * probs.mean(dim=(0, 1)))
+    f = _batch_mean((combine > 0).float(), (0, 1))               # routed share
+    lb = E * torch.sum(f * _batch_mean(probs, (0, 1)))
     return y, MoEAux(load_balance_loss=lb,
                      router_entropy=_router_entropy(probs))
 
 
-def _dense_experts(x, combine, w_gate, w_in, w_out) -> torch.Tensor:
+def _dense_experts(x, combine, w_gate, w_in, w_out, *shared) -> torch.Tensor:
     """The experts of the dense dispatch, each on every token of x
     (B,S,D), weighted by combine (B,S,E) and summed: (B,S,D) fp32. E is
-    the experts' own count (a rank's share on a placed step)."""
+    the experts' own count (a rank's share on a placed step); ``shared``,
+    the shared experts' (w_gate, w_in, w_out) (a rank's columns of their
+    hidden layer), adds their SwiGLU FFN's output, widened."""
     B, S, D = x.shape
     E, N = w_gate.shape[0], B * S
     xe = x.reshape(N, D)[None].expand(E, N, D)
@@ -187,6 +212,10 @@ def _dense_experts(x, combine, w_gate, w_in, w_out) -> torch.Tensor:
     F_ = h.shape[-1]
     y = _mm_f32(h.transpose(0, 1).reshape(N, E * F_),
                 w_out.reshape(E * F_, D))
+    if shared:
+        sg, si, so = (w.to(x.dtype) for w in shared)
+        h = ffn_act(x @ sg, x @ si, "swiglu")
+        y = y + (h @ so).reshape(N, D).float()
     return y.reshape(B, S, D)
 
 
@@ -303,8 +332,8 @@ def moe_forward_capacity(p, cfg: ModelConfig, x: torch.Tensor
     y = _with_shared(p, cfg, y.to(x.dtype), x)
     # fraction of tokens routed to each expert (matches the dense path)
     onehot = (top_idx[..., None] == torch.arange(E, device=x.device)).float()
-    f = onehot.mean(dim=(0, 1, 2)) * K
-    lb = E * torch.sum(f * probs.mean(dim=(0, 1)))
+    f = _batch_mean(onehot, (0, 1, 2)) * K
+    lb = E * torch.sum(f * _batch_mean(probs, (0, 1)))
     return y, MoEAux(load_balance_loss=lb,
                      router_entropy=_router_entropy(probs))
 
@@ -592,6 +621,11 @@ def ssd_block_forward(p, cfg: ModelConfig, u: torch.Tensor,
         return out, SSDState(ssm=final, conv=new_tail)
     if u.shape[1] > 1:
         state.ssm.copy_(final)
+    if is_dtensor(new_tail):
+        # the tail as the cache holds it (rows whole where the cache's
+        # layer split does not divide the data axes)
+        from repro_torch.distributed import parallel
+        new_tail, = parallel.placed_as([new_tail], [state.conv])
     state.conv.copy_(new_tail)
     return out, state
 

@@ -538,8 +538,30 @@ def remat(enabled: bool, fn, *args):
     ``torch.utils.checkpoint`` (non-reentrant), which keeps the inputs
     alone and recomputes the body's activations in the backward pass.
     Otherwise (serving, the graph captures) it is the plain call."""
-    if enabled and torch.is_grad_enabled() and any(
-            t.requires_grad for t in tree_tensors(args)):
+    if _checkpoints(enabled, args):
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)
+
+
+def _checkpoints(enabled: bool, args) -> bool:
+    return enabled and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_tensors(args))
+
+
+def remat_residual(enabled: bool, fn, *args):
+    """``remat`` of a layer body that takes and returns the residual stream
+    as (x, pending, ...): the stream before its last add and that add's
+    other operand, which the next layer's norm adds in (``add_rms_norm``).
+    Where it checkpoints, the body returns x + pending (the add the next
+    norm would make, bit for bit) and no pending, so that each checkpoint
+    keeps one tensor of the stream, as the JAX package's scan carries one
+    a layer, not two. Otherwise the plain call."""
+    if not _checkpoints(enabled, args):
+        return fn(*args)
+
+    def summed(*a):
+        x, pending, *rest = fn(*a)
+        return (x if pending is None else x + pending, None, *rest)
+    return checkpoint(summed, *args, use_reentrant=False,
+                      preserve_rng_state=False)

@@ -21,7 +21,7 @@ built once a forward or step and shared by the attention layers.
 A layer's last residual add is left to the next layer's first norm, or the
 final norm, which takes it in (``add_rms_norm``), as in the dense model.
 ``loss`` is the next-token cross entropy; with ``cfg.remat`` each layer is
-recomputed in the backward pass (``common.remat``).
+recomputed in the backward pass (``common.remat_residual``).
 """
 from __future__ import annotations
 
@@ -32,8 +32,8 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
-                                       embed_lookup, matmul, model_rope, remat,
-                                       softmax_cross_entropy)
+                                       embed_lookup, matmul, model_rope,
+                                       remat_residual, softmax_cross_entropy)
 
 
 class HybridLM:
@@ -125,14 +125,14 @@ class HybridLM:
         for up in params["units"]:
             caches = {}
             for i, kind in enumerate(self.pattern):
-                x, pending, caches[f"l{i}"] = remat(
+                x, pending, caches[f"l{i}"] = remat_residual(
                     self.cfg.remat, self._layer_full, up[f"l{i}"], kind, x,
                     pending, rope)
             unit_caches.append(caches)
         tail_caches = []
         for lp in params["tail"]:
-            x, pending, c = remat(self.cfg.remat, self._layer_full, lp,
-                                  "rec", x, pending, rope)
+            x, pending, c = remat_residual(self.cfg.remat, self._layer_full,
+                                           lp, "rec", x, pending, rope)
             tail_caches.append(c)
         return x, pending, {"units": unit_caches, "tail": tail_caches}
 

@@ -14,7 +14,7 @@ package's functional step returns.
 A layer's residual add is left to the next layer's norm, or the final norm,
 which takes it in (``add_rms_norm``), as in the dense model. ``loss`` is
 the next-token cross entropy; with ``cfg.remat`` each layer is
-recomputed in the backward pass (``common.remat``).
+recomputed in the backward pass (``common.remat_residual``).
 """
 from __future__ import annotations
 
@@ -24,9 +24,9 @@ import torch
 
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
-                                       embed_lookup, is_dtensor, matmul, remat,
-                                       softmax_cross_entropy, stack_layers,
-                                       unstack)
+                                       embed_lookup, is_dtensor, matmul,
+                                       remat_residual, softmax_cross_entropy,
+                                       stack_layers, unstack)
 
 
 class MambaLM:
@@ -70,7 +70,7 @@ class MambaLM:
         cfg = self.cfg
         states, y = [], None
         for lp in params["layers"]:
-            x, y, state = remat(cfg.remat, self._layer, lp, x, y)
+            x, y, state = remat_residual(cfg.remat, self._layer, lp, x, y)
             if collect_state:
                 states.append(state)
         return x, y, states

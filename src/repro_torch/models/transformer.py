@@ -25,7 +25,7 @@ in place: it writes each layer's new entries into the cache it was given
 and returns that same cache.
 
 With ``cfg.remat``, a forward that autograd records recomputes each
-layer's activations in the backward pass (``common.remat``).
+layer's activations in the backward pass (``common.remat_residual``).
 
 The rope tables and, in a decode step, the cache slots written and read
 are built once a forward or step and shared by every layer.
@@ -45,9 +45,9 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, add_rms_norm, dense_init,
-                                       embed_lookup, matmul, model_rope, remat,
-                                       softmax_cross_entropy, stack_layers,
-                                       unstack)
+                                       embed_lookup, matmul, model_rope,
+                                       remat_residual, softmax_cross_entropy,
+                                       stack_layers, unstack)
 
 
 class DecoderOnlyLM:
@@ -154,8 +154,9 @@ class DecoderOnlyLM:
         caches, pending, aux = [], None, None
         rope = model_rope(self.cfg, positions)
         for lp in params["prefix"] + params["layers"]:
-            x, pending, c, a = remat(self.cfg.remat, self._layer_full, lp, x,
-                                     pending, rope, cache_len)
+            x, pending, c, a = remat_residual(
+                self.cfg.remat, self._layer_full, lp, x, pending, rope,
+                cache_len)
             if a is not None:
                 aux = a if aux is None else aux + a
             if collect_cache:

@@ -14,7 +14,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.models.common import tree_map, tree_tensors
+from repro_torch.models.common import is_dtensor, tree_map, tree_tensors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +53,12 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
+    """The l2 norm over every leaf; placed leaves (DTensors, each placed as
+    its param) sum their squares shard by shard
+    (``distributed.parallel.global_norm``)."""
+    if is_dtensor(next(tree_tensors(tree))):
+        from repro_torch.distributed import parallel
+        return parallel.global_norm(tree)
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                           for g in tree_tensors(tree)))
 
@@ -63,13 +69,19 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
     the new params and moments into their tensors and returns them, the
     new state and the gradients' global norm (before the clip)."""
     step = state.step + 1
+    grads = list(tree_tensors(grads))
+    if is_dtensor(grads[0]):
+        # a placed gradient as its param is placed (a norm's weight's is
+        # left a partial sum over the batch by DTensor's own rules)
+        from repro_torch.distributed import parallel
+        grads = parallel.placed_as(grads, params)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = _schedule(cfg, step)
     b1c = 1.0 - torch.pow(cfg.b1, step.float())
     b2c = 1.0 - torch.pow(cfg.b2, step.float())
     with torch.no_grad():
-        for p, g, m, v in zip(tree_tensors(params), tree_tensors(grads),
+        for p, g, m, v in zip(tree_tensors(params), grads,
                               tree_tensors(state.m), tree_tensors(state.v)):
             # each temporary is freed before the next is made: the
             # largest leaf's (the embedding, the lm_head) is 1.6 GB in fp32

@@ -21,13 +21,21 @@ port may count fewer. Some rows hold more (``TIGHTER``): Mamba-2's
 collective bytes (its in-projection exchanged, not gathered) and, where
 "model" divides the query heads but not the kv heads, the all-gather
 bytes, at most the JAX package's all-gather and collective-permute bytes
-(each kv head gathered only among the ranks that read it).
+(each kv head gathered only among the ranks that read it), and
+deepseek-v2-lite-16b's train step, whose total is held both to the
+golden's count and, tighter, to the JAX package's full count
+(``FULL_COUNT``: ``tools/dryrun_sites.py``, which counts the tuple-shaped
+all-reduces that XLA combined and the golden's parser skips). No row has a
+collective that DTensor's own sharding propagation issued
+(``collective_sites``).
 
 recurrentgemma-9b's train and prefill are left out: its plain RG-LRU walks
 time token by token, 9-14 minutes a step on meta tensors.
 """
 import json
 import os
+import subprocess
+import sys
 
 import pytest
 import torch.distributed as dist
@@ -37,7 +45,8 @@ from repro_torch.launch import dryrun
 from repro_torch.models import build_model
 from repro_torch.models.common import init_shapes
 
-GOLDEN = os.path.join(os.path.dirname(__file__), "golden_dryrun_jax.json")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "golden_dryrun_jax.json")
 COLLECTIVE_BOUND = 2.0
 MODEL_WIDTH = 16  # the production meshes' "model" axis
 
@@ -55,6 +64,9 @@ ROWS = [
     ("mamba2-1.3b", "train_4k", "2x16x16"),
     ("mamba2-1.3b", "prefill_32k", "16x16"),
     ("nemotron-4-15b", "prefill_32k", "16x16"),
+    # the dense MoE dispatch's train step: one fp32 reduce of an MoE
+    # layer's output, the shared experts' partial sums in it
+    ("deepseek-v2-lite-16b", "train_4k", "16x16"),
 ]
 # (arch, shape, mesh) -> {what: bound over the JAX package's}
 KV_GATHER = {"all-gather": 1.0}
@@ -64,7 +76,12 @@ TIGHTER = {
     ("tinyllama-1.1b", "train_4k", "2x16x16"): KV_GATHER,
     ("tinyllama-1.1b", "prefill_32k", "16x16"): KV_GATHER,
     ("nemotron-4-15b", "prefill_32k", "16x16"): KV_GATHER,
+    ("deepseek-v2-lite-16b", "train_4k", "16x16"): {"total": 1.21},
 }
+# (arch, shape, mesh) -> the bound over the JAX package's collective bytes
+# counted in full by ``tools/dryrun_sites.py``, the tuple-shaped
+# all-reduces XLA combined (which the golden's parser skips) included
+FULL_COUNT = {("deepseek-v2-lite-16b", "train_4k", "16x16"): 0.4}
 
 
 def golden():
@@ -156,3 +173,35 @@ def test_placed_step_splits_as_the_jax_package(arch, shape, mesh):
         assert got <= bound * want, (what, got, want)
     # a rank's share of the whole step: at least an even split
     assert r["flops"] * r["devices"] >= r["flops_global"]
+    # every collective is one a placed op states: none that DTensor's own
+    # sharding propagation chose
+    own = [row for row in r["collective_sites"]
+           if row[3].startswith(dryrun.DTENSOR_SITE)]
+    assert not own, own
+    if (arch, shape, mesh) in FULL_COUNT:
+        full = jax_sites(arch, shape, mesh)
+        # the tool's count of what the golden's parser counts is the
+        # golden's own
+        for kind, n in ext["collective_bytes"].items():
+            assert full["golden"][kind] == pytest.approx(n, rel=1e-12), kind
+        assert coll <= FULL_COUNT[(arch, shape, mesh)] * full["full"][
+            "total"], (coll, full["full"]["total"])
+
+
+def jax_sites(arch, shape, mesh):
+    """``tools/dryrun_sites.py``'s JAX side (``jax_counts``) of (arch,
+    shape, mesh), run in a subprocess: JAX fixes its host device count when
+    it starts."""
+    code = "\n".join((
+        "import json, sys",
+        "sys.path.insert(0, 'tools')",
+        "import dryrun_sites",
+        f"print(json.dumps(dryrun_sites.jax_counts({arch!r}, {shape!r}, "
+        f"{mesh!r})))"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
