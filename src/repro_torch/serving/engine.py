@@ -2,11 +2,14 @@
 backends and a simulated clock.
 
 ``SimBackend`` and ``InferenceEngine`` are copies of
-``repro.serving.engine``'s, float-op for float-op. ``TorchBackend`` takes
-the place of ``JaxBackend``: it runs the port's model on the card (through
-the Hopper kernels) per iteration, each step a CUDA graph's replay. Both
-backends expose identical (latency, energy, power) effects, so AGFT drives
-either transparently through ``set_frequency``.
+``repro.serving.engine``'s, float-op for float-op; ``InferenceEngine``
+adds only the hooks of its backend's span trace
+(``repro_torch.serving.spans``), which compute nothing the engine reads.
+``TorchBackend`` takes the place of ``JaxBackend``: it runs the port's
+model on the card (through the Hopper kernels) per iteration, each step
+a CUDA graph's replay. Both backends expose identical (latency, energy,
+power) effects, so AGFT drives either transparently through
+``set_frequency``.
 
 The engine is a discrete-event process: future arrivals live in a heap
 (O(log n) ``submit``, no re-sorts), and ``next_event_time`` tells the
@@ -50,6 +53,7 @@ from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.metrics import MetricsExporter
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import BatchPlan, ContinuousBatchingScheduler
+from repro_torch.serving.spans import SpanTrace
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +247,11 @@ class TorchBackend:
     phase's clock. ``prefill_steps`` and ``decode_steps`` count the
     forwards and decode steps run; ``prefill_lengths`` keeps each forward's
     padded length, ``decode_wall_s`` the wall time of each decode-only
-    iteration, and ``logits`` the last decode step's logits.
+    iteration, and ``logits`` the last decode step's logits. ``trace``
+    (``repro_torch.serving.spans.SpanTrace``) records the spans of
+    ``execute`` while the engine's iteration is recorded, each replay
+    timed on the card by its graph's own events
+    (``StepGraph.device_ms``); it counts every ``execute``.
     """
 
     def __init__(self, cfg: ModelConfig, hardware: HardwareSpec = H100,
@@ -278,6 +286,7 @@ class TorchBackend:
         self._prefill_tokens = {n: torch.zeros((1, n), **zeros)
                                 for n in PREFILL_BUCKETS}
         on_card = self.device.type == "cuda"
+        self.trace = SpanTrace()
         self._pos_host = (torch.ones((max_batch,), dtype=torch.long,
                                      pin_memory=True)
                           if on_card else self.pos)
@@ -317,7 +326,12 @@ class TorchBackend:
 
     def execute(self, plan: BatchPlan, f_mhz: float
                 ) -> Tuple[float, float, float]:
+        tr = self.trace if self.trace.on else None
+        if tr is not None:
+            t_in = time.perf_counter_ns()
         self._sync()
+        if tr is not None:
+            tr.child("backend.wait", t_in)
         t0 = time.perf_counter()
         with torch.no_grad():
             if plan.prefill_tokens:
@@ -325,17 +339,30 @@ class TorchBackend:
                 # JaxBackend does to bound its traces
                 n = min(plan.prefill_tokens, 64)
                 n = 1 << (max(n, 1) - 1).bit_length()
-                self.prefill_graphs[n]()
+                graph = self.prefill_graphs[n]
+                if tr is None:
+                    graph()
+                else:
+                    tr.replay("backend.replay.prefill", graph)
                 self.prefill_lengths.append(n)
             if plan.decode:
+                if tr is not None:
+                    t_prep = time.perf_counter_ns()
                 b = self.max_batch
                 self._pos_host.numpy()[:] = np.minimum(
                     [r.context_len for r in plan.decode[:b]]
                     + [1] * max(0, b - len(plan.decode)), self.cache_len - 1)
                 if self._pos_host is not self.pos:
                     self.pos.copy_(self._pos_host, non_blocking=True)
-                self.logits = self.decode_graph()
+                if tr is None:
+                    self.logits = self.decode_graph()
+                else:
+                    tr.child("backend.prepare", t_prep)
+                    self.logits = tr.replay("backend.replay.decode",
+                                            self.decode_graph)
                 self.decode_steps += 1
+        if tr is not None:
+            t_sync = time.perf_counter_ns()
         self._sync()
         wall = time.perf_counter() - t0
         if plan.decode and not plan.prefill_tokens:
@@ -346,6 +373,9 @@ class TorchBackend:
         p = sp.p_idle + sp.p_static_active + sp.p_dyn_compute * fr ** sp.alpha
         # frequency scales the compute-bound fraction of wall time
         t = wall * (1.0 / max(fr, 1e-3))
+        if tr is not None:
+            tr.end_execute(t_in, t_sync)
+        self.trace.executes += 1
         return t, p * t, p
 
 
@@ -398,6 +428,10 @@ class InferenceEngine:
         #: attached by a bound FaultModel; None = healthy simulation, and
         #: every fault hook below is a single None check
         self.fault_state = None
+        #: the backend's span trace (``repro_torch.serving.spans``); None
+        #: for a backend without one, and every span hook below is then a
+        #: single None check
+        self.trace = getattr(self.backend, "trace", None)
         self.finished: List[Request] = []
 
     # ------------------------------------------------------------------
@@ -564,6 +598,12 @@ class InferenceEngine:
         (the scheduler is expected to hold work; otherwise this is a
         blocked tick)."""
         sched = self.sched
+        tr = self.trace
+        if tr is not None:
+            if tr.begin():
+                t0 = time.perf_counter_ns()
+            else:
+                tr = None
         plan = sched.schedule(self.clock)
         if not plan.prefill and not plan.decode:     # inlined plan.empty
             # blocked (e.g. out of KV blocks): try preemption, else idle-tick
@@ -572,6 +612,8 @@ class InferenceEngine:
             plan = sched.schedule(self.clock)
             if plan.empty:
                 return self._blocked_tick()
+        if tr is not None:
+            t1 = time.perf_counter_ns()
 
         # prefix-cache credit must be read BEFORE completion advances
         # ``prefilled`` (a request is on its first chunk exactly while
@@ -585,6 +627,8 @@ class InferenceEngine:
             dt, energy, power = self.backend.execute(plan, self.frequency)
         else:
             dt, energy, power = self._execute_phased(plan)
+        if tr is not None:
+            t2 = time.perf_counter_ns()
         self.clock += dt
         finished = sched.complete_iteration(plan, self.clock)
         if finished:
@@ -627,6 +671,8 @@ class InferenceEngine:
         c.gpu_cache_usage = self.kv.usage
         c.current_frequency_mhz = self.frequency
         c.current_power_watts = power
+        if tr is not None:
+            tr.end_iteration(t0, t1, t2)
         return finished
 
     # ------------------------------------------------------------------

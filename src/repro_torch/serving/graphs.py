@@ -17,6 +17,13 @@ capture records the counts its wrappers added (and takes them back, since
 a capture launches nothing), and each replay adds them again through
 ``repro_torch.kernels.add_launch_counts``. ``launch_counts()`` thus counts
 every launch that ran, eager or replayed.
+
+The capture also records two CUDA events into the graph, one before the
+step's first operation and one after its last (``cudaEventRecordExternal``
+nodes): ``device_ms()`` reads the card's time between them in the last
+replay, once the card has finished it. Under a ``torch.profiler`` the
+card also waits between them for the profiled launch (milliseconds on an
+H100), so the reading is the step's own time only where no profiler runs.
 """
 from __future__ import annotations
 
@@ -38,7 +45,8 @@ class StepGraph:
     ``launches`` holds the kernel launches of one replay, ``capture_s``
     the wall time of the warm-up and the capture, and ``memory_bytes`` the
     device memory that the capture reserved for the graph
-    (``torch.cuda.memory_reserved``)."""
+    (``torch.cuda.memory_reserved``); ``device_ms()`` the card's time of
+    the last replay."""
 
     def __init__(self, fn: Callable, device: torch.device,
                  pool=None, name: str = "step"):
@@ -49,6 +57,7 @@ class StepGraph:
         self.launches: Dict[str, int] = {}
         self.capture_s = 0.0
         self.memory_bytes = 0
+        self._events = None
         if device.type == "cuda":
             self._capture(device, pool)
 
@@ -70,10 +79,16 @@ class StepGraph:
         reserved = torch.cuda.memory_reserved(device)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        events = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                       for _ in range(2))
+        for ev in events:             # created here, not inside the capture
+            ev.record()
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=pool):
+                events[0].record()
                 self.output = self.fn()
+                events[1].record()
             torch.cuda.synchronize(device)
         except Exception as e:
             raise RuntimeError(
@@ -85,6 +100,7 @@ class StepGraph:
                          if n != before[k]}
         add_launch_counts(self.launches, -1)    # the capture launched nothing
         self.graph = graph
+        self._events = events
         self.capture_s = time.perf_counter() - t0
         self.memory_bytes = torch.cuda.memory_reserved(device) - reserved
 
@@ -94,3 +110,11 @@ class StepGraph:
         self.graph.replay()
         add_launch_counts(self.launches)
         return self.output
+
+    def device_ms(self) -> Optional[float]:
+        """The card's time of the last replay between the graph's two
+        events (ms), once the card has finished it; None on the CPU. Read
+        only after a replay."""
+        if self._events is None:
+            return None
+        return self._events[0].elapsed_time(self._events[1])

@@ -37,7 +37,8 @@ from repro_torch.kernels import rmsnorm as rms
 from repro_torch.kernels import ssd
 from repro_torch.models import (build_model, tree_clone, tree_map,
                                 tree_tensors)
-from repro_torch.serving import TorchBackend
+from repro_torch.serving import BatchPlan, Request, TorchBackend
+from repro_torch.serving.graphs import StepGraph
 
 pytestmark = pytest.mark.cuda
 
@@ -717,6 +718,56 @@ def test_a_failed_capture_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA graph failed"):
         TorchBackend(get_config("tinyllama-1.1b").reduced(), max_batch=2,
                      cache_len=32, device=cuda)
+
+
+def test_a_graph_times_its_own_replay(cuda):
+    """``StepGraph.device_ms`` is the card's time of the replay alone:
+    launched behind a long kernel, the replay waits on the card, and its
+    graph's own events leave that wait out."""
+    graph = StepGraph(lambda: torch.cuda._sleep(1_000_000), cuda)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(3):
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        graph()
+        end.record()
+        torch.cuda.synchronize(cuda)
+        whole, own = start.elapsed_time(end), graph.device_ms()
+        assert 0.0 < own < 0.25 * whole, (own, whole)
+
+
+def test_replays_are_timed_on_the_card(cuda):
+    """With the span trace forced on, each graph replay's span carries the
+    card's time between its two CUDA events: more than nothing, and no more
+    than the host's whole ``execute`` around it, which waits for the card.
+    A mixed iteration's two replays are timed apart."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    backend = TorchBackend(cfg, max_batch=2, cache_len=64, device=cuda)
+    backend.trace.force = True
+
+    def req(ctx):
+        r = Request(arrival_time=0.0, prompt_len=ctx, output_len=8)
+        r.prefilled = ctx
+        return r
+    plans = [BatchPlan(prefill=[(req(0), 40)], decode=[]),
+             BatchPlan(prefill=[], decode=[req(40)]),
+             BatchPlan(prefill=[(req(0), 16)], decode=[req(41), req(7)])]
+    for plan in plans:
+        assert backend.trace.begin()
+        backend.execute(plan, backend.dvfs.spec.f_max)
+    by = backend.trace.by_iteration()
+    assert sorted(by) == [0, 1, 2]
+    for i, want in enumerate([["backend.replay.prefill"],
+                              ["backend.replay.decode"],
+                              ["backend.replay.prefill",
+                               "backend.replay.decode"]]):
+        (ex,) = [s for s in by[i] if s.name == "backend.execute"]
+        reps = sorted((s for s in by[i] if s.name.startswith(
+            "backend.replay.")), key=lambda s: s.start_ns)
+        assert [s.name for s in reps] == want
+        host_ms = (ex.end_ns - ex.start_ns) / 1e6
+        for s in reps:
+            assert 0.0 < s.device_ms <= host_ms, (i, s)
 
 
 # -- training on the card ------------------------------------------------

@@ -167,3 +167,4 @@ def test_step_graph_runs_eagerly_on_the_cpu():
                       torch.device("cpu"))
     assert calls == [] and graph.graph is None and graph.launches == {}
     assert graph() == 1 and graph() == 2
+    assert graph.device_ms() is None            # no card: nothing timed
