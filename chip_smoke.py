@@ -8,7 +8,7 @@ the JAX package ``repro``), needs one CUDA card, and exits non-zero on any
 failure, or when there is no card or no checkout beside it. Phases:
 
 1. Environment: the card's name and power limit, the kernel build (one
-   ``nvcc`` per CUDA source, all five at once), and each kernel's
+   ``nvcc`` per CUDA source, all six at once), and each kernel's
    registers and spill bytes from ptxas's report.
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, on the sweep shapes of ``tests/test_kernels.py`` and on the
@@ -27,7 +27,11 @@ failure, or when there is no card or no checkout beside it. Phases:
    deepseek-v2-lite-16b's widths against fp64, as exact as the widened
    fp32 product, and timed beside it. Flash and decode attention also at
    whisper-medium's decoder shapes (16 query heads over 16 kv heads of 64,
-   G = 1; decode against its 448-slot cache), checked and timed last.
+   G = 1; decode against its 448-slot cache), checked and timed last. MLA
+   decode in the latent space (``kernels.mla_decode``, which replaces no
+   Pallas kernel) at deepseek-v2-lite-16b's batch of 32 over 2048 and 512
+   slots, at its two mixes' contexts, timed beside SDPA over the latents
+   as one kv head.
 3. Models: full-width llama3-3b, mamba2-1.3b, recurrentgemma-9b,
    deepseek-v2-lite-16b (MoE with MLA) and llama4-scout-17b-a16e (MoE,
    GQA 40/8, cut to 2 layers) from a seeded generator, one at a time;
@@ -206,6 +210,14 @@ G5_FLASH = [(1, S, 40, 8, 128) for S in (1, 16, 40, 64)]
 SWEEP_DECODE = [(1, 512, 4, 4, 64), (2, 1024, 8, 2, 64), (4, 512, 4, 1, 128)]
 MAIN_DECODE = (8, 2048, 24, 8, 128)
 G5_DECODE = (8, 2048, 40, 8, 128)
+# MLA decode in the latent space (B, T, H, R, RP, fewest and most valid
+# slots a row): deepseek-v2-lite-16b at the benchmark's batch of 32 over
+# its two caches, with the contexts of its two mixes (normal: prompts
+# 256-1024 and up to 350 tokens out; short: up to 256 and 256)
+MAIN_MLA = [(32, 2048, 16, 512, 64, 257, 1374),
+            (32, 512, 16, 512, 64, 17, 511)]
+SWEEP_MLA = [(4, 64, 4, 64, 16, 1, 64), (3, 520, 16, 512, 64, 1, 520)]
+MLA_SCALE = (128 + 64) ** -0.5     # deepseek-v2-lite-16b's (nope + rope)^-0.5
 SWEEP_RMS = [(4, 128), (2, 17, 256), (3, 5, 7, 512)]
 MAIN_RMS = [(8, 3072), (64, 3072)]
 # the other models' rows: d_model 2048 (mamba2-1.3b, deepseek-v2-lite-16b),
@@ -356,7 +368,10 @@ ROWS = {"rmsnorm": ("rmsnorm", MODELS + (AZURE_RUN, TRAINED_RUN)
         "rglru_gated_scan_step": ("rglru_gated_step",
                                   ("recurrentgemma-9b",)),
         "flash_attention_g1": ("flash_attention", (WHISPER,)),
-        "decode_attention_g1": ("decode_attention", (WHISPER,))}
+        "decode_attention_g1": ("decode_attention", (WHISPER,)),
+        "mla_decode": ("mla_decode", ("deepseek-v2-lite-16b",
+                                      "deepseek-v2-lite-16b capacity")),
+        "mla_decode_s512": ("mla_decode", ())}
 # the rmsnorm row counts every launch of the RMSNorm kernel, the
 # add_rmsnorm row those among them that took the residual add in; the
 # rglru_scan row every launch of the RG-LRU kernel, the two rglru_gated
@@ -502,6 +517,18 @@ def randn(torch, gen, shape, dtype):
                        dtype=torch.float32).to(dtype)
 
 
+def mla_inputs(torch, gen, B, T, H, R, RP, lo, hi, dt):
+    """q (B, H, R + RP), c_kv (B, T, R), k_rope (B, T, RP) from unit
+    normals and valid (B, T): each row's first lo..hi slots (a decode
+    step's context and its own new entry)."""
+    lengths = torch.randint(lo, hi + 1, (B,), generator=gen,
+                            device=gen.device)
+    valid = torch.arange(T, device=gen.device)[None] < lengths[:, None]
+    return (randn(torch, gen, (B, H, R + RP), dt),
+            randn(torch, gen, (B, T, R), dt),
+            randn(torch, gen, (B, T, RP), dt), valid)
+
+
 def tree_bytes(tree) -> int:
     """The bytes of a params or cache tree's tensors."""
     from repro_torch.models import tree_tensors
@@ -515,6 +542,7 @@ def tree_bytes(tree) -> int:
 def check_kernels(torch, dev):
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode as mla
     from repro_torch.kernels import rglru as lru
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssd
@@ -607,6 +635,16 @@ def check_kernels(torch, dev):
         record(row, f"ring-buffer B{B} T{T} H{H} Hkv{Hkv} "
                f"D{D}", "float32", dec.decode_attention(q, kc, vc, valid),
                dec.decode_attention_plain(q, kc, vc, valid), False)
+    # MLA decode in the latent space, both dtypes; deepseek's scale
+    for dn, dt in dtypes.items():
+        for shape in SWEEP_MLA + MAIN_MLA:
+            B, T, H, R, RP, lo, hi = shape
+            args = mla_inputs(torch, gen, B, T, H, R, RP, lo, hi, dt)
+            row = "mla_decode_s512" if T == 512 else "mla_decode"
+            record(row, f"B{B} T{T} H{H} R{R} RP{RP} valid {lo}-{hi}", dn,
+                   mla.mla_decode(*args, MLA_SCALE),
+                   mla.mla_decode_plain(*args, MLA_SCALE),
+                   shape in MAIN_MLA)
     # the two scans, fp32 as their callers give them
     for (b, s, h, p, g, n, chunk) in SWEEP_SSD + MAIN_SSD:
         main = (b, s, h, p, g, n, chunk) in MAIN_SSD
@@ -722,6 +760,7 @@ def time_kernels(torch, dev, main_err):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode as mla
     from repro_torch.kernels import rglru as lru
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssd
@@ -841,6 +880,40 @@ def time_kernels(torch, dev, main_err):
             source="src/repro_torch/csrc/decode_attention.cu",
             replaces="src/repro/kernels/decode_attention.py:57",
             **decode_timing(shape, max_len)))
+    # MLA decode in the latent space at deepseek-v2-lite-16b's two caches
+    # and mixes: bytes are each valid latent row once (R + RP bf16), q and
+    # o; operations 2 H (R + RP + R) a valid slot. The library yardstick:
+    # SDPA over the latents as one kv head (key and value built before)
+    for row, shape in zip(("mla_decode", "mla_decode_s512"), MAIN_MLA):
+        B, T, H, R, RP, lo, hi = shape
+        q, c_kv, k_rope, valid = mla_inputs(torch, gen, B, T, H, R, RP, lo,
+                                            hi, bf)
+        n_valid = int(valid.sum())
+        nbytes = 2 * (n_valid * (R + RP) + B * H * (R + RP) + B * H * R)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * H * n_valid * (2 * R + RP),
+                              "bfloat16")
+        kt = torch.cat([c_kv, k_rope], dim=-1)[:, None]
+        vt, qt, mask = c_kv[:, None], q[:, :, None], valid[:, None, None]
+
+        def call():
+            return mla.mla_decode(q, c_kv, k_rope, valid, MLA_SCALE)
+        rows.append(dict(
+            name=row, route="cuda",
+            source="src/repro_torch/csrc/mla_decode.cu",
+            replaces="none: src/repro/models/attention.py:mla_decode's "
+                     "up-projected einsums",
+            shape=f"q ({B}, {H}, {R + RP}), latents ({B}, {T}, {R} + "
+                  f"{RP}), {n_valid} valid slots, bf16; "
+                  f"{mla.grid_plan(B, T, mla._num_sms(0))} first-pass "
+                  "blocks",
+            ms=device_ms(torch, call),
+            plain_ms=device_ms(torch, lambda: mla.mla_decode_plain(
+                q, c_kv, k_rope, valid, MLA_SCALE)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True,
+                scale=MLA_SCALE), "mla_decode"),
+            kernel_us=kernel_us(torch, call)))
     # SSD at mamba2-1.3b's largest prefill bucket (64 tokens, chunk 64),
     # and at 256 tokens in two chunks of the config's 128. The bound counts
     # the products the function needs, in fp32 (the CUDA cores' rate: the
@@ -1217,10 +1290,12 @@ def step_parts(torch, backend, context: int = 600):
     """Where an MoE model's decode step goes, by part: each part of one
     layer timed alone (``device_ms``) on the backend's own weights at the
     step's shapes (``max_batch`` tokens; under MLA a cache of
-    ``cache_len`` slots at ``context``), times the layers that run it. The
+    ``cache_len`` slots at ``context``, and within MLA decode its
+    latent-space attention kernel), times the layers that run it. The
     layer's weights meet the part cold, as in a step; the latent cache
     (16.8 MB a layer) stays in L2 between calls, as it does not in a
     step."""
+    from repro_torch.kernels import ops as kops
     from repro_torch.models import attention as attn
     from repro_torch.models import blocks
     from repro_torch.models.common import model_rope
@@ -1247,14 +1322,14 @@ def step_parts(torch, backend, context: int = 600):
             randn(torch, gen, (B, T, cfg.qk_rope_head_dim), dt))
         slots = attn.decode_slots(cfg, T, pos)
         rope = model_rope(cfg, pos[:, None])
-        k_nope, v = attn._mla_up(lp["attn"], cfg, cache.c_kv)
+        q = randn(torch, gen, (B, cfg.num_heads,
+                               cfg.kv_lora_rank + cfg.qk_rope_head_dim), dt)
         parts += [
             ("MLA decode", cfg.num_layers,
              lambda: attn.mla_decode(lp["attn"], cfg, h, cache, slots, rope)),
-            ("  its up-projection of the cache (K, V)", cfg.num_layers,
-             lambda: attn._mla_up(lp["attn"], cfg, cache.c_kv)),
-            ("  its fp32 casts of K and V", cfg.num_layers,
-             lambda: (k_nope.float(), v.float()))]
+            ("  its latent-space attention kernel", cfg.num_layers,
+             lambda: kops.mla_decode(q, cache.c_kv, cache.k_rope,
+                                     slots.valid, MLA_SCALE))]
     say(f"  {cfg.name} decode step by part (batch {B}, one layer's part "
         "timed alone, x layers):")
     with torch.no_grad():
@@ -1419,8 +1494,9 @@ def path_launches(cfg, prefill_lengths, dec):
     per forward, flash attention
     L (dense) and the SSD scan L (Mamba-2, at every length); per decode
     step, decode attention L (dense) or once per attention layer (hybrid),
-    neither under MLA (an MoE model's norms are the dense model's: 2L+1,
-    its latents' norm staying plain, as in the JAX package);
+    under MLA the latent-space MLA decode L instead (an MoE model's norms
+    are the dense model's: 2L+1, its latents' norm staying plain, as in the
+    JAX package);
     per forward and per decode step, the RG-LRU kernel's fused form once per
     rec layer (hybrid), counted in ``rglru_scan`` and, by its length, in
     ``rglru_gated`` (two tokens or more) or ``rglru_gated_step`` (one: a
@@ -1442,8 +1518,8 @@ def path_launches(cfg, prefill_lengths, dec):
                 "rglru_gated": rec * multi,
                 "rglru_gated_step": rec * (fwd - multi + dec),
                 "decode_attention": units * pat.count("attn") * dec}
-    if cfg.use_mla:                   # MLA attends by einsum, as in JAX
-        return norms
+    if cfg.use_mla:     # MLA's prefill attends by einsum, as in JAX
+        return {**norms, "mla_decode": L * dec}
     return {**norms, "flash_attention": L * fwd, "decode_attention": L * dec}
 
 

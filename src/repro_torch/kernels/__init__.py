@@ -12,6 +12,9 @@ decode_attention   CUDA     repro/kernels/decode_attention.py::
 ssd                CUDA     repro/kernels/ssd.py::ssd_scan_kernel
 rglru              CUDA     repro/kernels/rglru.py::rglru_scan_kernel
                             (alone, or with the RG-LRU block's gates)
+mla_decode         CUDA     no Pallas kernel: MLA decode in the latent
+                            space, in place of the up-projected einsums
+                            of repro/models/attention.py::mla_decode
 =================  =======  ==========================================
 """
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Dict
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import decode_attention as _dec
 from repro_torch.kernels.flash_attention import flash_attention as _fa
+from repro_torch.kernels.mla_decode import mla_decode as _mla
 from repro_torch.kernels.rglru import rglru_scan as _rglru
 from repro_torch.kernels.rmsnorm import rmsnorm as _rms
 from repro_torch.kernels.ssd import ssd_scan as _ssd
@@ -29,7 +33,7 @@ from repro_torch.kernels.ssd import ssd_scan as _ssd
 #: raises by one where it launches its kernel, and nowhere else
 WRAPPERS = {"rmsnorm": _rms, "flash_attention": _fa,
             "decode_attention": _dec, "ssd_scan": _ssd,
-            "rglru_scan": _rglru}
+            "rglru_scan": _rglru, "mla_decode": _mla}
 # every count: (the wrapper that holds it, its attribute)
 _COUNTERS = {**{name: (fn, "launches") for name, fn in WRAPPERS.items()},
              "rmsnorm_fused": (_rms, "fused_launches"),
@@ -49,6 +53,10 @@ DEVICE_KERNELS = {
     "decode_combine": ("decode_attention", ("decode_combine_kernel",)),
     "ssd_scan": ("ssd_scan", ("ssd_scan_kernel",)),
     "rglru_scan": ("rglru_scan", ("rglru_scan_kernel",)),
+    "mla_decode": ("mla_decode", ("mla_decode_tile_kernel",
+                                  "mla_decode_f32_kernel")),
+    "mla_decode_list": ("mla_decode", ("mla_decode_list_kernel",)),
+    "mla_decode_merge": ("mla_decode", ("mla_decode_merge_kernel",)),
 }
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention as _dec
 from repro_torch.kernels.flash_attention import flash_attention as _fa
+from repro_torch.kernels.mla_decode import mla_decode as _mla
 from repro_torch.kernels.rglru import rglru_gated_scan as _rglru_gated
 from repro_torch.kernels.rglru import rglru_scan as _rglru
 from repro_torch.kernels.rmsnorm import add_rmsnorm as _add_rms
@@ -25,6 +26,12 @@ def flash_attention(q, k, v, *, causal: bool = True):
 def decode_attention(q, k_cache, v_cache, valid):
     """q: (B,1,H,D); caches: (B,T,Hkv,D); valid: (B,T) -> (B,1,H,D)."""
     return _dec(q, k_cache, v_cache, valid)
+
+
+def mla_decode(q, c_kv, k_rope, valid, scale: float):
+    """q (B,H,R+RP) in the latent space; c_kv (B,T,R); k_rope (B,T,RP);
+    valid (B,T) -> o_lat (B,H,R)."""
+    return _mla(q, c_kv, k_rope, valid, scale)
 
 
 def rmsnorm(x, weight, *, eps: float = 1e-6):

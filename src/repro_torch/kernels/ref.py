@@ -58,6 +58,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def mla_decode(q: torch.Tensor, c_kv: torch.Tensor, k_rope: torch.Tensor,
+               valid: torch.Tensor, scale: float) -> torch.Tensor:
+    """MLA decode in the latent space, in fp32: q (B,H,R+RP), each head's
+    query taken into the latent space (R) then its rope part (RP); c_kv
+    (B,T,R) and k_rope (B,T,RP), one key and value every head shares;
+    valid (B,T) bool -> o_lat (B,H,R) in q's dtype. A row with no valid
+    slot gives 0."""
+    R = c_kv.shape[-1]
+    qf = q.float()
+    scores = (torch.einsum("bhr,btr->bht", qf[..., :R], c_kv.float())
+              + torch.einsum("bhp,btp->bht", qf[..., R:], k_rope.float()))
+    live = valid[:, None, :]
+    scores = torch.where(live, scores * scale, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    probs = p / torch.where(l == 0.0, 1.0, l)
+    return torch.einsum("bht,btr->bhr", probs, c_kv.float()).to(q.dtype)
+
+
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
             *, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()

@@ -3,9 +3,12 @@ sliding-window ring buffer, the chunked (streaming-softmax) reference, MLA
 (DeepSeek-V2's multi-head latent attention over a compressed cache) and
 whisper's cross-attention to precomputed encoder K/V. Plain paths are
 PyTorch; with ``cfg.use_pallas`` the hand-written Hopper kernels of
-``repro_torch.kernels`` run GQA's causal prefill and decode instead (on a
-CPU tensor their plain versions run). MLA and cross-attention attend
-through the plain einsums, as the JAX package does, with no kernel.
+``repro_torch.kernels`` run GQA's causal prefill and decode and MLA's
+decode instead (on a CPU tensor their plain versions run). MLA's decode
+attends in the latent space (``_mla_absorbed``), which the JAX package
+does not: the same sum, with no cached latent up-projected. MLA's prefill
+and cross-attention attend through the plain einsums, as the JAX package
+does.
 
 The decode caches are updated in place: ``attention_decode`` and
 ``mla_decode`` write the new token's entries into the cache tensors they
@@ -566,16 +569,53 @@ def mla_forward(p, cfg: ModelConfig, x: torch.Tensor, rope: RopeTables,
     return y, MLACache(c_kv=c_kv, k_rope=k_rope)
 
 
+def _mla_absorbed(p, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """One token's MLA in the latent space (DeepSeek-V2's absorption,
+    arXiv:2405.04434, section 2.1.2): ``w_uk`` taken into each head's
+    query and ``w_uv`` into its output, so every head attends to the cached
+    latents as they are, one key (R + rope wide) and value (R) they all
+    share. The same sum as ``_mla_attend``'s, with no latent up-projected.
+    q_nope (B,1,H,nope), q_rope (B,1,H,rope); c_kv (B,T,R); k_rope
+    (B,T,rope); valid (B,T). ``cfg.use_pallas`` attends through the kernel
+    (``kernels.mla_decode``), else through its plain version."""
+    B, _, H, _ = q_nope.shape
+    R = cfg.kv_lora_rank
+    w_uk = p["w_uk"].to(q_nope.dtype).view(R, H, cfg.qk_nope_head_dim)
+    w_uv = p["w_uv"].to(q_nope.dtype).view(R, H, cfg.v_head_dim)
+    # (H, B, nope) @ (H, nope, R), then the rope part: (B, H, R + rope)
+    q_lat = torch.matmul(q_nope[:, 0].transpose(0, 1), w_uk.permute(1, 2, 0))
+    q = torch.cat([q_lat, q_rope[:, 0].transpose(0, 1)], dim=-1)
+    q = q.transpose(0, 1)
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    if cfg.use_pallas:
+        from repro_torch.kernels import ops as kops
+        o_lat = kops.mla_decode(q, c_kv, k_rope, valid, scale)
+    else:
+        from repro_torch.kernels import ref
+        o_lat = ref.mla_decode(q, c_kv, k_rope, valid, scale)
+    # (H, B, R) @ (H, R, v): each head's output from its latent one
+    out = torch.matmul(o_lat.transpose(0, 1), w_uv.permute(1, 0, 2))
+    out = out.transpose(0, 1).reshape(B, 1, H * cfg.v_head_dim)
+    return matmul(out, p["wo"].to(out.dtype))
+
+
 def mla_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: MLACache,
                slots: DecodeSlots, rope: RopeTables
                ) -> Tuple[torch.Tensor, MLACache]:
     """One-token MLA decode. x: (B,1,d_model); ``slots``: the step's
     ``decode_slots`` (no window: MLA's cache is never a ring); ``rope``:
     the tables of its positions. The new latent and rope key are written
-    into the cache in place, which is returned."""
+    into the cache in place, which is returned. Attention runs in the
+    latent space (``_mla_absorbed``); placed operands (DTensors) keep the
+    up-projected form, each rank on its heads (``_mla_attend``)."""
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, rope)
     c_new = _write_cache(cfg, cache.c_kv, c_kv, slots)
     kr_new = _write_cache(cfg, cache.k_rope, k_rope, slots)
+    if not (is_dtensor(q_nope) or is_dtensor(c_new)):
+        y = _mla_absorbed(p, cfg, q_nope, q_rope, c_new, kr_new,
+                          slots.valid)
+        return y, MLACache(c_kv=c_new, k_rope=kr_new)
     c_att, kr_att, valid = c_new, kr_new, slots.valid[:, None, None]
     if is_dtensor(c_new):
         # where the data axes leave the batch whole, each of their ranks

@@ -31,6 +31,7 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import (device_launches, launch_counts,
                                  profile_calls, traced_launches)
+from repro_torch.kernels import mla_decode as mla
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru as lru
 from repro_torch.kernels import rmsnorm as rms
@@ -218,6 +219,78 @@ def test_decode_kernel_chunks(cuda, monkeypatch, chunk, B, T, H, Hkv, D):
     got = dec.decode_attention(*args)
     assert bool((got[-1] == 0).all())
     _close(got, dec.decode_attention_plain(*args), "bfloat16")
+
+
+# (B, T, H, R, RP): deepseek-v2-lite-16b's decode at the benchmark's batch
+# and both its caches, a T that no tile divides, and the reduced model's
+# widths with a validity row that is not 16-byte aligned (T = 40)
+MLA_SHAPES = [(32, 2048, 16, 512, 64), (32, 512, 16, 512, 64),
+              (3, 520, 16, 512, 64), (4, 64, 4, 64, 16),
+              (2, 40, 4, 64, 16)]
+
+
+def _mla_case(seed, B, T, H, R, RP, dtype, device, holes=False):
+    """q, c_kv, k_rope and valid: ragged contexts (as a decode step's, each
+    row's slots up to and including its own new entry), one row whose only
+    valid slot is slot 0 and, with more than two rows, one with no valid
+    slot; with ``holes`` a random mask instead."""
+    q, c_kv, k_rope = (_dev(a, dtype, device) for a in
+                       _normal(seed, (B, H, R + RP), (B, T, R), (B, T, RP)))
+    rng = np.random.default_rng(seed + 1)
+    if holes:
+        valid = rng.random((B, T)) < 0.3
+    else:
+        valid = np.arange(T)[None] < rng.integers(1, T + 1, B)[:, None]
+        valid[0] = np.arange(T) < 1
+        if B > 2:
+            valid[-1] = False
+    return q, c_kv, k_rope, torch.from_numpy(valid).to(device)
+
+
+@pytest.mark.parametrize("B,T,H,R,RP", MLA_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("holes", [False, True])
+def test_mla_kernel_matches_plain(cuda, B, T, H, R, RP, dtype, holes):
+    """The latent-space MLA decode kernel against its plain version: bf16
+    within the relative L2 of 1e-3, fp32 at 2e-5; a row with no valid slot
+    gives 0; one launch."""
+    args = _mla_case(20, B, T, H, R, RP, dtype, cuda, holes)
+    scale = (128 + 64) ** -0.5
+    before = mla.mla_decode.launches
+    got = mla.mla_decode(*args, scale)
+    assert mla.mla_decode.launches == before + 1
+    assert got.shape == (B, H, R) and got.dtype == args[0].dtype
+    if B > 2 and not holes:
+        assert bool((got[-1] == 0).all())
+    _close(got, mla.mla_decode_plain(*args, scale), dtype)
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2, 8, 64])
+@pytest.mark.parametrize("T", [520, 2048])
+def test_mla_kernel_splits(cuda, monkeypatch, blocks_per_sm, T):
+    """Other cuts of the batch's live tiles into the first pass's runs
+    (runs that span rows, rows split over many runs, runs of one tile or
+    none) give the plain version's output, bf16 and fp32."""
+    monkeypatch.setattr(mla, "BLOCKS_PER_SM", blocks_per_sm)
+    for dtype in DTYPES:
+        args = _mla_case(22, 32, T, 16, 512, 64, dtype, cuda)
+        _close(mla.mla_decode(*args, 0.07), mla.mla_decode_plain(*args, 0.07),
+               dtype)
+
+
+def test_mla_kernel_reads_strided_operands(cuda):
+    """A q that is a transposed view (as the model passes it), latents and
+    rope keys that are slices of larger buffers."""
+    B, T, H = 4, 300, 16
+    qh, big_c, big_r = _normal(24, (H, B, 576), (B, T + 7, 520),
+                               (B, T + 3, 72))
+    q = _dev(qh, "bfloat16", cuda).transpose(0, 1)
+    c_kv = _dev(big_c, "bfloat16", cuda)[:, 4:4 + T, :512]
+    k_rope = _dev(big_r, "bfloat16", cuda)[:, 1:1 + T, 8:]
+    valid = torch.from_numpy(
+        np.random.default_rng(25).random((B, T)) < 0.6).to(cuda)
+    _close(mla.mla_decode(q, c_kv, k_rope, valid, 0.07),
+           mla.mla_decode_plain(q, c_kv, k_rope, valid, 0.07), "bfloat16")
 
 
 # sha256 of the fp32 attention kernels' output bytes, recorded on an H100
@@ -600,12 +673,15 @@ def test_kernel_moe_models_match_plain(cuda, arch, kw):
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 40))).to(cuda)
     km = build_model(cfg.replace(use_pallas=True))
-    attention = 0 if cfg.use_mla else L        # MLA attends by einsum
+    # MLA's prefill attends by einsum, its decode through mla_decode
+    attention = 0 if cfg.use_mla else L
+    latent = L if cfg.use_mla else 0
     before = launch_counts()
     lk, _ = km.forward(params, toks)
     after = launch_counts()
     want = {"rmsnorm": 2 * L + 1, "rmsnorm_fused": 2 * L,
-            "flash_attention": attention, "decode_attention": 0}
+            "flash_attention": attention, "decode_attention": 0,
+            "mla_decode": 0}
     for name, n in want.items():
         assert after[name] - before[name] == n, name
     lp, _ = build_model(cfg).forward(params, toks)
@@ -618,6 +694,7 @@ def test_kernel_moe_models_match_plain(cuda, arch, kw):
     after = launch_counts()
     assert after["decode_attention"] - before["decode_attention"] == \
         attention
+    assert after["mla_decode"] - before["mla_decode"] == latent
     np.testing.assert_allclose(dl[:, 0].cpu().numpy(),
                                lk[:, 39].cpu().numpy(), rtol=1e-3, atol=1e-3)
 
@@ -702,6 +779,39 @@ def test_graph_replays_match_eager(cuda, arch, dtype):
                     break
                 time.sleep(1.0)
             assert seen == device_launches(graph.launches), graph.name
+
+
+def test_graphed_deepseek_decode_at_full_width_matches_eager(cuda):
+    """deepseek-v2-lite-16b at full width (cut to its dense layer and one
+    MoE layer), bf16, at the benchmark's batch of 32 over 512 slots: the
+    decode graph launches the latent-space MLA kernel once a layer and no
+    prefill graph launches it; two replays from a random cache at ragged
+    positions (one row at position 0, whose only valid slot is its own new
+    entry) equal the eager steps bit for bit, logits and cache."""
+    cfg = get_config("deepseek-v2-lite-16b").replace(num_layers=2)
+    backend = TorchBackend(cfg, max_batch=32, cache_len=512, device=cuda)
+    assert backend.decode_graph.launches["mla_decode"] == cfg.num_layers
+    for n, graph in backend.prefill_graphs.items():
+        assert graph.launches.get("mla_decode", 0) == 0, n
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for t in tree_tensors(backend.cache):
+        t.normal_(generator=gen)
+    ref = tree_clone(backend.cache)
+    start = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 510, 32)).to(cuda)
+    start[0] = 0
+    with torch.no_grad():
+        for step in range(2):
+            pos = start + step
+            backend.pos.copy_(pos)
+            backend.token.random_(0, cfg.vocab_size, generator=gen)
+            got = backend.decode_graph()
+            want = backend.model.decode_step(backend.params, backend.token,
+                                             ref, pos)[0]
+            assert torch.equal(got, want), step
+            for a, b in zip(tree_tensors(backend.cache),
+                            tree_tensors(ref)):
+                assert torch.equal(a, b), step
 
 
 def test_a_failed_capture_raises(cuda, monkeypatch):
@@ -842,13 +952,15 @@ def _refusal_cases(device):
         "rglru_scan": (ops.rglru_scan, (lx, la, h0)),
         "rglru_gated_scan": (ops.rglru_gated_scan,
                              (lx, lx, lx, lam, lx, h0)),
+        "mla_decode": (lambda *a: ops.mla_decode(*a, 0.1),
+                       (r(1, 4, 80), r(1, 8, 64), r(1, 8, 16), valid)),
     }
 
 
 @pytest.mark.parametrize("name", ["rmsnorm", "add_rmsnorm",
                                   "flash_attention", "decode_attention",
                                   "ssd_scan", "rglru_scan",
-                                  "rglru_gated_scan"])
+                                  "rglru_gated_scan", "mla_decode"])
 def test_kernel_wrappers_refuse_autograd_on_the_card(cuda, name):
     """Each wrapper, given CUDA tensors of which one requires grad, raises
     and launches nothing; under ``torch.no_grad()`` it launches."""

@@ -85,7 +85,15 @@ def test_debug_mesh_runs(arch, shape, mesh, tmp_path, capsys):
         (r,) = json.load(f)["results"]
     assert r["mesh"] == ("2x4" if mesh == "pod" else "2x2x4")
     assert r["devices"] == (8 if mesh == "pod" else 16)
-    assert 0 < r["flops"] <= r["flops_global"]
+    assert 0 < r["flops"]
+    if arch == "deepseek-v2-lite-16b" and shape.startswith("decode"):
+        # the placed step up-projects its share of the cached latents
+        # (``attention._mla_attend``); the whole step with nothing placed
+        # attends in the latent space and up-projects none
+        # (``attention._mla_absorbed``), so it does less than one rank
+        assert r["flops"] > r["flops_global"]
+    else:
+        assert r["flops"] <= r["flops_global"]
     assert r["memory"]["argument_size_bytes"] > 0
     temp = r["memory"]["temp_size_bytes"]
     assert isinstance(temp, int) and temp > 0

@@ -44,7 +44,8 @@ def test_engine_with_real_torch_execution():
     assert launch_counts() == {"rmsnorm": 0, "rmsnorm_fused": 0,
                                "flash_attention": 0, "decode_attention": 0,
                                "ssd_scan": 0, "rglru_scan": 0,
-                               "rglru_gated": 0, "rglru_gated_step": 0}
+                               "mla_decode": 0, "rglru_gated": 0,
+                               "rglru_gated_step": 0}
 
 
 def test_backend_defaults_to_h100_and_the_registered_agft():

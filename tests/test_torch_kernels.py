@@ -21,6 +21,7 @@ from repro_torch.kernels import launch_counts, ops, reset_launch_counts
 from repro_torch.kernels import rglru as lru
 from repro_torch.kernels import rmsnorm as rms
 from repro_torch.kernels import ssd
+from repro_torch.kernels.mla_decode import mla_decode_plain
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -185,10 +186,18 @@ def test_cpu_tensors_run_the_plain_versions_uncounted():
         for got, want in zip(ops.rglru_gated_scan(*args),
                              lru.rglru_gated_scan_plain(*args)):
             torch.testing.assert_close(got, want, rtol=0, atol=0)
+    lat = torch.randn(2, 8, 80)
+    torch.testing.assert_close(
+        ops.mla_decode(lat[:, :4], lat[..., :64], lat[..., 64:],
+                       torch.ones(2, 8, dtype=torch.bool), 0.1),
+        mla_decode_plain(lat[:, :4], lat[..., :64], lat[..., 64:],
+                         torch.ones(2, 8, dtype=torch.bool), 0.1),
+        rtol=0, atol=0)
     assert launch_counts() == {"rmsnorm": 0, "rmsnorm_fused": 0,
                                "flash_attention": 0, "decode_attention": 0,
                                "ssd_scan": 0, "rglru_scan": 0,
-                               "rglru_gated": 0, "rglru_gated_step": 0}
+                               "mla_decode": 0, "rglru_gated": 0,
+                               "rglru_gated_step": 0}
 
 
 def test_other_devices_raise():
