@@ -31,7 +31,9 @@ failure, or when there is no card or no checkout beside it. Phases:
    decode in the latent space (``kernels.mla_decode``, which replaces no
    Pallas kernel) at deepseek-v2-lite-16b's batch of 32 over 2048 and 512
    slots, at its two mixes' contexts, timed beside SDPA over the latents
-   as one kv head.
+   as one kv head; its wide entry (``kernels.mla_decode_wide``, bf16) at
+   16 to 128 heads, and timed at DeepSeek-V3's 128 heads over the
+   deepseek-v3-671b.longctx cell's 64 rows of 16384 slots.
 3. Models: full-width llama3-3b, mamba2-1.3b, recurrentgemma-9b,
    deepseek-v2-lite-16b (MoE with MLA) and llama4-scout-17b-a16e (MoE,
    GQA 40/8, cut to 2 layers) from a seeded generator, one at a time;
@@ -218,6 +220,18 @@ MAIN_MLA = [(32, 2048, 16, 512, 64, 257, 1374),
             (32, 512, 16, 512, 64, 17, 511)]
 SWEEP_MLA = [(4, 64, 4, 64, 16, 1, 64), (3, 520, 16, 512, 64, 1, 520)]
 MLA_SCALE = (128 + 64) ** -0.5     # deepseek-v2-lite-16b's (nope + rope)^-0.5
+# the wide entry (``mla_decode_wide``) at DeepSeek-V3's 128 heads: the
+# benchmark's deepseek-v3-671b.longctx cell (64 rows of 16384 slots, contexts
+# 4096 + 512 .. 12288 + 2048), and smaller cuts of 16, 64 and 100 heads; the
+# same (nope + rope)^-0.5
+MAIN_MLA_WIDE = [(64, 16384, 128, 512, 64, 4608, 14336)]
+SWEEP_MLA_WIDE = [(4, 520, 16, 512, 64, 1, 520), (4, 520, 64, 512, 64, 1, 520),
+                  (3, 300, 100, 512, 64, 1, 300),
+                  (32, 2048, 128, 512, 64, 257, 2048)]
+# its P is one bf16 value a slot (the narrow kernel splits it in hi + lo):
+# each weight rounded with unit roundoff 2^-8 puts about 1.4e-3 into the
+# output's relative L2 (1.44e-3 measured on an H100)
+MLA_WIDE_REL_L2 = 6e-3
 SWEEP_RMS = [(4, 128), (2, 17, 256), (3, 5, 7, 512)]
 MAIN_RMS = [(8, 3072), (64, 3072)]
 # the other models' rows: d_model 2048 (mamba2-1.3b, deepseek-v2-lite-16b),
@@ -371,7 +385,8 @@ ROWS = {"rmsnorm": ("rmsnorm", MODELS + (AZURE_RUN, TRAINED_RUN)
         "decode_attention_g1": ("decode_attention", (WHISPER,)),
         "mla_decode": ("mla_decode", ("deepseek-v2-lite-16b",
                                       "deepseek-v2-lite-16b capacity")),
-        "mla_decode_s512": ("mla_decode", ())}
+        "mla_decode_s512": ("mla_decode", ()),
+        "mla_decode_wide": ("mla_decode_wide", ())}
 # the rmsnorm row counts every launch of the RMSNorm kernel, the
 # add_rmsnorm row those among them that took the residual add in; the
 # rglru_scan row every launch of the RG-LRU kernel, the two rglru_gated
@@ -551,12 +566,13 @@ def check_kernels(torch, dev):
     failures = []
     main_err = dict.fromkeys(ROWS, 0.0)
 
-    def record(name, case, dn, got, want, main, tol=None):
+    def record(name, case, dn, got, want, main, tol=None,
+               rel_max=BF16_REL_L2):
         err, ok = close(torch, got, want, tol or dn)
         rel = ""
         if dn == "bfloat16":
             e_rel = rel_l2(torch, got, want)
-            ok = ok and e_rel <= BF16_REL_L2
+            ok = ok and e_rel <= rel_max
             rel = f" rel_l2={e_rel:.3e}"
         say(f"  {name:16s} {case:34s} {dn:8s} max_abs_err={err:.3e}{rel}"
             f" {'ok' if ok else 'FAIL'}")
@@ -645,6 +661,15 @@ def check_kernels(torch, dev):
                    mla.mla_decode(*args, MLA_SCALE),
                    mla.mla_decode_plain(*args, MLA_SCALE),
                    shape in MAIN_MLA)
+    # the wide entry, bf16 only (what it takes)
+    for shape in SWEEP_MLA_WIDE + MAIN_MLA_WIDE:
+        B, T, H, R, RP, lo, hi = shape
+        args = mla_inputs(torch, gen, B, T, H, R, RP, lo, hi, torch.bfloat16)
+        record("mla_decode_wide", f"B{B} T{T} H{H} valid {lo}-{hi}",
+               "bfloat16", mla.mla_decode_wide(*args, MLA_SCALE),
+               mla.mla_decode_plain(*args, MLA_SCALE),
+               shape in MAIN_MLA_WIDE, rel_max=MLA_WIDE_REL_L2)
+        del args
     # the two scans, fp32 as their callers give them
     for (b, s, h, p, g, n, chunk) in SWEEP_SSD + MAIN_SSD:
         main = (b, s, h, p, g, n, chunk) in MAIN_SSD
@@ -914,6 +939,38 @@ def time_kernels(torch, dev, main_err):
                 qt, kt, vt, attn_mask=mask, enable_gqa=True,
                 scale=MLA_SCALE), "mla_decode"),
             kernel_us=kernel_us(torch, call)))
+    # the wide entry at the deepseek-v3-671b.longctx cell's 128 heads and
+    # cache; the same bound
+    for shape in MAIN_MLA_WIDE:
+        B, T, H, R, RP, lo, hi = shape
+        q, c_kv, k_rope, valid = mla_inputs(torch, gen, B, T, H, R, RP, lo,
+                                            hi, bf)
+        n_valid = int(valid.sum())
+        nbytes = 2 * (n_valid * (R + RP) + B * H * (R + RP) + B * H * R)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * H * n_valid * (2 * R + RP),
+                              "bfloat16")
+
+        def call_wide():
+            return mla.mla_decode_wide(q, c_kv, k_rope, valid, MLA_SCALE)
+        say("  library call for mla_decode_wide: none (SDPA over the latents "
+            "as one kv head takes its math path at 128 heads and would "
+            "materialise ~288 GiB)")
+        rows.append(dict(
+            name="mla_decode_wide", route="cuda",
+            source="src/repro_torch/csrc/mla_decode.cu",
+            replaces="none: src/repro/models/attention.py:mla_decode's "
+                     "up-projected einsums",
+            shape=f"q ({B}, {H}, {R + RP}), latents ({B}, {T}, {R} + "
+                  f"{RP}), {n_valid} valid slots, bf16; "
+                  f"{mla.grid_plan_wide(B, T, H, mla._num_sms(0))} runs of "
+                  f"{-(-H // mla.WIDE_HEADS)} blocks",
+            ms=device_ms(torch, call_wide),
+            plain_ms=device_ms(torch, lambda: mla.mla_decode_plain(
+                q, c_kv, k_rope, valid, MLA_SCALE)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            kernel_us=kernel_us(torch, call_wide)))
+        del q, c_kv, k_rope, valid
+        torch.cuda.empty_cache()
     # SSD at mamba2-1.3b's largest prefill bucket (64 tokens, chunk 64),
     # and at 256 tokens in two chunks of the config's 128. The bound counts
     # the products the function needs, in fp32 (the CUDA cores' rate: the

@@ -1,7 +1,8 @@
 // MLA decode in the latent space on Hopper (sm_90a): one query token per
 // sequence, its H <= 16 heads already taken into the latent space, against
 // the latent cache (B, T, R) and the shared rope keys (B, T, RP) under a
-// boolean validity mask.
+// boolean validity mask. A second entry, mla_decode_wide_fwd (namespace wide
+// below), takes up to 128 heads in bf16.
 //
 // Replaces no Pallas kernel. The JAX package computes MLA decode with
 // einsums that up-project every cached latent through w_uk and w_uv
@@ -87,11 +88,13 @@ __device__ __forceinline__ uint32_t tile_mask(const uint8_t* vrow, int j,
 // it marks the row's range of first-pass blocks empty (first 0, last -1)
 // and, with the other blocks, zeroes every partial's l (a pair of block
 // and row that no run makes keeps l = 0, which the merge skips).
-__global__ void __launch_bounds__(256)
-mla_decode_list_kernel(const uint8_t* __restrict__ valid,
-                       int* __restrict__ counts, int* __restrict__ first,
-                       int* __restrict__ last, int* __restrict__ list,
-                       float* __restrict__ part_l, Args a) {
+__device__ __forceinline__ void list_body(const uint8_t* __restrict__ valid,
+                                          int* __restrict__ counts,
+                                          int* __restrict__ first,
+                                          int* __restrict__ last,
+                                          int* __restrict__ list,
+                                          float* __restrict__ part_l,
+                                          const Args& a) {
   __shared__ uint16_t masks[NTILE_MAX];
   const int b = blockIdx.x;
   const long long nl = static_cast<long long>(a.G + a.B) * a.H;
@@ -122,6 +125,24 @@ mla_decode_list_kernel(const uint8_t* __restrict__ valid,
     first[b] = 0;
     last[b] = -1;
   }
+}
+
+__global__ void __launch_bounds__(256)
+mla_decode_list_kernel(const uint8_t* __restrict__ valid,
+                       int* __restrict__ counts, int* __restrict__ first,
+                       int* __restrict__ last, int* __restrict__ list,
+                       float* __restrict__ part_l, Args a) {
+  list_body(valid, counts, first, last, list, part_l, a);
+}
+
+// The same pass under its own name for the wide-head kernel's launches
+// (namespace wide), so that a device trace tells the two entry points apart.
+__global__ void __launch_bounds__(256)
+mla_wide_list_kernel(const uint8_t* __restrict__ valid,
+                     int* __restrict__ counts, int* __restrict__ first,
+                     int* __restrict__ last, int* __restrict__ list,
+                     float* __restrict__ part_l, Args a) {
+  list_body(valid, counts, first, last, list, part_l, a);
 }
 
 // The first ordinal of block g's run: g N / G (in 32 bits where g N fits).
@@ -156,12 +177,12 @@ __device__ __forceinline__ Share share_at(void* p) {
                row + 4 * MAXT + 1, row + 4 * MAXT + 2};
 }
 
-// Fills the block's share (every thread calls it); returns its stages, the
-// block synchronised. At most MAXT entries: the host makes G at least
-// ceil(B x tiles a row / MAXT).
+// Fills the share of run g (every thread calls it); returns its stages, the
+// block synchronised. At most MAXT entries (the wide kernel's MAXTW): the
+// host makes G at least ceil(B x tiles a row / MAXT).
 __device__ int block_share(const int* __restrict__ counts,
                            const int* __restrict__ list, const Args& a,
-                           int tps, const Share& sh) {
+                           int tps, const Share& sh, int g) {
   const int ntile = (a.T + WT - 1) / WT;
   if (threadIdx.x < 32) {               // prefix[b] = live tiles before b
     const int lane = threadIdx.x;
@@ -180,7 +201,7 @@ __device__ int block_share(const int* __restrict__ counts,
     if (lane == 0) sh.prefix[0] = 0;
   }
   __syncthreads();
-  const int N = sh.prefix[a.B], g = blockIdx.x;
+  const int N = sh.prefix[a.B];
   const int lo = run_start(g, N, a.G);
   const int n = run_start(g + 1, N, a.G) - lo;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -218,16 +239,16 @@ __device__ __forceinline__ bool ends_row(const Share& sh, int s, int nst) {
          sh.row[sh.stage_at[s + 1]] != sh.row[sh.stage_at[s]];
 }
 
-// At the end of the block's part of row b (its entries up to, not
-// including, end): where that part holds the row's first or last live
-// tile, this block is the first or last of the blocks whose partials the
-// merge reads for the row. One thread calls it.
+// At the end of run g's part of row b (its entries up to, not including,
+// end): where that part holds the row's first or last live tile, run g is
+// the first or last of the runs whose partials the merge reads for the
+// row. One thread calls it.
 __device__ __forceinline__ void mark_row(const Share& sh, int b, int end,
-                                         int* first, int* last) {
+                                         int* first, int* last, int g) {
   int e = end - 1;
   while (e > 0 && sh.row[e - 1] == b) --e;
-  if (*sh.lo + e == sh.prefix[b]) first[b] = blockIdx.x;
-  if (*sh.lo + end == sh.prefix[b + 1]) last[b] = blockIdx.x;
+  if (*sh.lo + e == sh.prefix[b]) first[b] = g;
+  if (*sh.lo + end == sh.prefix[b + 1]) last[b] = g;
 }
 
 // ---------------------------------------------------------------------------
@@ -326,7 +347,7 @@ mla_decode_tile_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int nst = block_share(counts, list, a, TPS, sh);
+  const int nst = block_share(counts, list, a, TPS, sh, blockIdx.x);
 
   // stage s: its row's q (when the row starts there) and its tiles' rows
   auto load_stage = [&](int s) {
@@ -513,7 +534,8 @@ mla_decode_tile_kernel(const __nv_bfloat16* __restrict__ q,
     // columns; then the running state starts again
     const long long base =
         (static_cast<long long>(blockIdx.x) + sh.row[e0]) * a.H;
-    if (tid == 0) mark_row(sh, sh.row[e0], sh.stage_at[s + 1], first, last);
+    if (tid == 0) mark_row(sh, sh.row[e0], sh.stage_at[s + 1], first, last,
+                             blockIdx.x);
     if (warp == 0 && tig == 0) {
       if (gid < a.H) {
         part_m[base + gid] = m_a;
@@ -615,7 +637,7 @@ mla_decode_f32_kernel(const float* __restrict__ q,
 
   const int tid = threadIdx.x;
   const int h = tid / WT, j = tid % WT;     // this thread's score
-  const int nst = block_share(counts, list, a, 1, sh);   // a tile a stage
+  const int nst = block_share(counts, list, a, 1, sh, blockIdx.x);   // a tile a stage
   float m = REPRO_NEG_INF, l = 0.f;          // head h's, in all 16 threads
   float acc[CPT][HMAX];
 #pragma unroll
@@ -682,7 +704,7 @@ mla_decode_f32_kernel(const float* __restrict__ q,
     if (!ends_row(sh, s, nst)) continue;     // block-uniform
 
     const long long base = (static_cast<long long>(blockIdx.x) + b) * a.H;
-    if (tid == 0) mark_row(sh, b, s + 1, first, last);
+    if (tid == 0) mark_row(sh, b, s + 1, first, last, blockIdx.x);
     if (j == 0 && h < a.H) {
       part_m[base + h] = m;
       part_l[base + h] = l;
@@ -725,13 +747,12 @@ cudaError_t launch(const void* q, const void* ckv, const void* krope,
 // once into shared memory: two round trips to device memory before the
 // acc's.
 template <typename T>
-__global__ void __launch_bounds__(128)
-mla_decode_merge_kernel(const int* __restrict__ first,
-                        const int* __restrict__ last,
-                        const float* __restrict__ part_m,
-                        const float* __restrict__ part_l,
-                        const float* __restrict__ part_acc,
-                        T* __restrict__ o, Args a) {
+__device__ __forceinline__ void merge_body(const int* __restrict__ first,
+                                           const int* __restrict__ last,
+                                           const float* __restrict__ part_m,
+                                           const float* __restrict__ part_l,
+                                           const float* __restrict__ part_acc,
+                                           T* __restrict__ o, const Args& a) {
   extern __shared__ float wsplit[];          // [G] m, then weights; [G] l
   float* lsplit = wsplit + a.G;
   __shared__ float lsum_s;
@@ -771,6 +792,28 @@ mla_decode_merge_kernel(const int* __restrict__ first,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(128)
+mla_decode_merge_kernel(const int* __restrict__ first,
+                        const int* __restrict__ last,
+                        const float* __restrict__ part_m,
+                        const float* __restrict__ part_l,
+                        const float* __restrict__ part_acc,
+                        T* __restrict__ o, Args a) {
+  merge_body(first, last, part_m, part_l, part_acc, o, a);
+}
+
+// The same pass under its own name for the wide-head kernel's launches.
+__global__ void __launch_bounds__(128)
+mla_wide_merge_kernel(const int* __restrict__ first,
+                      const int* __restrict__ last,
+                      const float* __restrict__ part_m,
+                      const float* __restrict__ part_l,
+                      const float* __restrict__ part_acc,
+                      __nv_bfloat16* __restrict__ o, Args a) {
+  merge_body(first, last, part_m, part_l, part_acc, o, a);
+}
+
+template <typename T>
 cudaError_t merge(const int* first, const int* last, const float* pm,
                   const float* pl, const float* pacc, void* o, const Args& a,
                   cudaStream_t stream) {
@@ -779,6 +822,344 @@ cudaError_t merge(const int* first, const int* last, const float* pm,
           first, last, pm, pl, pacc, static_cast<T*>(o), a);
   return cudaGetLastError();
 }
+
+
+// ---------------------------------------------------------------------------
+// bf16 at up to 128 heads: namespace wide (entry mla_decode_wide_fwd)
+// ---------------------------------------------------------------------------
+//
+// At DeepSeek-V3's 128 heads a latent row (R 512 + RP 64, 1,152 B) feeds
+// 128 x (576 + 512) x 2 = 278,528 flops: ~241 a byte against the H100's
+// ridge of ~295, so the products weigh as much as the bytes. The fp32
+// accumulators of a row's run are 128 x 512 x 4 = 256 KB, the whole
+// register file of an SM, so no block can hold them all: a block takes 64
+// heads (four 16-head m-tiles, 128 KB of accumulators over 16 warps, 64
+// registers a lane), and each valid latent is read from device memory by
+// the two blocks of its run, ceil(H / 64) times in all. The grid is (head
+// group, run) with the head group fastest, so the two blocks of a run are
+// launched together and read the same tiles at about the same time, the
+// second mostly from L2.
+//
+// The listing and merging passes are the narrow kernel's (under the names
+// mla_wide_list_kernel and mla_wide_merge_kernel), with longer runs: at most
+// MAXTW = 256 live tiles a run, so that each run's partials (64 heads x 512
+// fp32 a row it touches) stay a small share of the latents it reads. A run
+// walks its entries in stages of TPS = 2 tiles (32 slots), three in a ring
+// of shared memory: stage s + 2 is copied while stage s is computed.
+//
+// - S = Q K^T: warp w takes m-tile w / 4, tile w % 2 of the stage and half
+//   of the 36 k-steps ((w / 2) % 2); the halves meet in shared memory.
+// - Softmax: thread t takes head t / 8 and 4 slots; the 8 threads of a head
+//   (lanes of one warp) reduce its max and sum by shuffles; the running
+//   (m, l) of each head and its rescale live in shared memory. P is one bf16
+//   value (the narrow kernel's hi + lo split would double the P V products,
+//   which here weigh as much as the bytes).
+// - P V: warp w owns value columns 32 w .. 32 w + 31 of all 64 heads: per
+//   tile it loads those columns of V once and runs them against each
+//   m-tile's P.
+// - The q of the run's row is staged once per row in one buffer of 64 x 584
+//   bf16; a new row within a run loads it after the last stage of the row
+//   before has been consumed.
+//
+// Shared memory: the ring 112,128 B, q 74,752, S 20,480, P 5,120, the
+// running (m, l, rescale) 768, the share 8,208: 221,456 B, one block an SM.
+
+namespace wide {
+
+constexpr int HWMAX = 128;           // most heads
+constexpr int MT = 4;                // 16-head m-tiles a block
+constexpr int HB = 16 * MT;          // heads a block
+constexpr int NW = 16;               // warps per block
+constexpr int TPS = 2;               // tiles per stage
+constexpr int KSPLIT = 2;            // warps that share a tile's S
+constexpr int ST = TPS * WT;         // slots per stage
+constexpr int NST = 3;               // stages in the ring
+constexpr int MAXTW = 256;           // most live tiles a run takes
+constexpr int R = 512, RP = 64;      // the widths it is built for
+constexpr int DK = R + RP;           // key width
+constexpr int LD = DK + 8;           // padded row, elements
+constexpr int KS = DK / 16;          // k-steps of Q K^T
+constexpr int CPR = DK / 8;          // 16-byte chunks a row
+constexpr int RC = R / 8;            // of them c_kv's
+constexpr int CB = R / 16 / NW;      // 16-column blocks of V a warp
+constexpr int SLD = ST + 8;          // S row, floats
+constexpr int PLD = ST + 8;          // P row, elements
+static_assert(NW == MT * TPS * KSPLIT, "a warp an (m-tile, tile, k-half)");
+static_assert(NW * 32 == HB * ST / 4, "a thread 4 scores of one head");
+static_assert(CB * 16 * NW == R, "the value columns over the warps");
+
+constexpr size_t ring_bytes = sizeof(__nv_bfloat16) * NST * ST * LD;
+constexpr size_t q_bytes = sizeof(__nv_bfloat16) * HB * LD;
+constexpr size_t s_bytes = sizeof(float) * KSPLIT * HB * SLD;
+constexpr size_t p_bytes = sizeof(__nv_bfloat16) * HB * PLD;
+constexpr size_t stat_bytes = sizeof(float) * 3 * HB;
+constexpr size_t share_w_bytes = sizeof(int) * ((BMAX + 1) + 4 * MAXTW + 3);
+constexpr size_t smem =
+    ring_bytes + q_bytes + s_bytes + p_bytes + stat_bytes + share_w_bytes;
+
+__device__ __forceinline__ Share share_w_at(void* p) {
+  int* x = static_cast<int*>(p);
+  int* row = x + BMAX + 1;
+  return Share{x, row, row + MAXTW, row + 2 * MAXTW, row + 3 * MAXTW + 1,
+               row + 4 * MAXTW + 1, row + 4 * MAXTW + 2};
+}
+
+__global__ void __launch_bounds__(NW * 32, 1)
+mla_wide_tile_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ ckv,
+                     const __nv_bfloat16* __restrict__ krope,
+                     const int* __restrict__ counts,
+                     const int* __restrict__ list, int* __restrict__ first,
+                     int* __restrict__ last, float* __restrict__ part_m,
+                     float* __restrict__ part_l, float* __restrict__ part_acc,
+                     Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* at = smem_raw;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(at);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(at += ring_bytes);
+  float* sb = reinterpret_cast<float*>(at += q_bytes);   // [KSPLIT][HB][SLD]
+  __nv_bfloat16* pb = reinterpret_cast<__nv_bfloat16*>(at += s_bytes);
+  float* mrun = reinterpret_cast<float*>(at += p_bytes);  // [HB] each
+  float* lrun = mrun + HB;
+  float* alph = lrun + HB;
+  const Share sh = share_w_at(at + stat_bytes);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int hg = blockIdx.x, g = blockIdx.y;     // head group, run
+  const int h0 = hg * HB;
+  if (tid < HB) {
+    mrun[tid] = REPRO_NEG_INF;
+    lrun[tid] = 0.f;
+  }
+  const int nst = block_share(counts, list, a, TPS, sh, g);
+
+  auto load_q = [&](int b) {
+    const __nv_bfloat16* qb = q + b * a.sqb;
+    for (int i = tid; i < HB * CPR; i += NW * 32) {
+      const int r = i / CPR, c = i % CPR, h = h0 + r;
+      repro_cp_async16(qs + r * LD + c * 8,
+                       qb + min(h, a.H - 1) * a.sqh + c * 8, h < a.H);
+    }
+  };
+  auto load_stage = [&](int s) {
+    const int e0 = sh.stage_at[s], ne = sh.stage_at[s + 1] - e0;
+    const int b = sh.row[e0];
+    const __nv_bfloat16* cb = ckv + b * a.scb;
+    const __nv_bfloat16* rb = krope + b * a.srb;
+    __nv_bfloat16* kd = ring + (s % NST) * ST * LD;
+    for (int i = tid; i < ne * WT * CPR; i += NW * 32) {
+      const int r = i / CPR, c = i % CPR;
+      const int tm = sh.tm[e0 + r / WT];
+      const bool ok = (tm >> (16 + r % WT)) & 1;
+      const long long t = (tm & 0xffff) * WT + (ok ? r % WT : 0);
+      const __nv_bfloat16* src =
+          c < RC ? cb + t * a.sct + c * 8 : rb + t * a.srt + (c - RC) * 8;
+      repro_cp_async16(kd + r * LD + c * 8, src, ok);
+    }
+  };
+  if (nst > 0) {
+    load_q(sh.row[0]);
+    load_stage(0);
+  }
+  repro_cp_async_commit();
+  if (nst > 1) load_stage(1);
+  repro_cp_async_commit();
+
+  const int mt_s = warp >> 2;                  // this warp's m-tile of S,
+  const int tile_s = warp & 1;                 // its tile
+  const int kpart = (warp >> 1) & 1;           // and its half of the k-steps
+  const int k0 = kpart * KS / KSPLIT, k1 = (kpart + 1) * KS / KSPLIT;
+  const int hs = tid >> 3, j0 = (tid & 7) * 4; // softmax: head, first slot
+  const float scale2 = a.scale * kLog2e;
+  float acc[MT][CB][2][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+        acc[m][c][h2][0] = acc[m][c][h2][1] = acc[m][c][h2][2] =
+            acc[m][c][h2][3] = 0.f;
+
+  for (int s = 0; s < nst; ++s) {
+    repro_cp_async_wait<1>();
+    __syncthreads();   // stage s (and its q) landed; stage s - 1 consumed
+    const int e0 = sh.stage_at[s], ne = sh.stage_at[s + 1] - e0;
+    const int b = sh.row[e0];
+    if (s > 0 && sh.row[sh.stage_at[s - 1]] != b) {      // block-uniform
+      load_q(b);
+      repro_cp_async_commit();
+      repro_cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (s + 2 < nst) load_stage(s + 2);
+    repro_cp_async_commit();
+    const __nv_bfloat16* kt = ring + (s % NST) * ST * LD;
+
+    if (tile_s < ne) {                         // warp-uniform
+      float sc[2][4] = {};
+      const __nv_bfloat16* kw = kt + tile_s * WT * LD;
+      const __nv_bfloat16* qw = qs + mt_s * 16 * LD;
+      for (int kk = k0; kk < k1; ++kk) {
+        uint32_t qf[4], kf[4];
+        repro_ldsm_x4(qf, qw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+        repro_ldsm_x4(kf, kw + ((lane & 7) + ((lane >> 4) << 3)) * LD +
+                              kk * 16 + ((lane >> 3) & 1) * 8);
+        repro_mma_bf16(sc[0], qf, kf[0], kf[1]);
+        repro_mma_bf16(sc[1], qf, kf[2], kf[3]);
+      }
+      float* sw = sb + (kpart * HB + mt_s * 16) * SLD + tile_s * WT + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        *reinterpret_cast<float2*>(sw + gid * SLD + 8 * j) =
+            make_float2(sc[j][0], sc[j][1]);
+        *reinterpret_cast<float2*>(sw + (gid + 8) * SLD + 8 * j) =
+            make_float2(sc[j][2], sc[j][3]);
+      }
+    }
+    __syncthreads();                           // the stage's S is whole
+
+    {  // softmax: head hs, slots j0 .. j0 + 3 of the stage
+      const int tl = j0 / WT;
+      const uint32_t msk =
+          tl < ne ? (static_cast<uint32_t>(sh.tm[e0 + tl]) >> 16) >>
+                        (j0 % WT)
+                  : 0u;
+      const float4 x0 = *reinterpret_cast<const float4*>(sb + hs * SLD + j0);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(sb + (HB + hs) * SLD + j0);
+      const float v[4] = {x0.x + x1.x, x0.y + x1.y, x0.z + x1.z,
+                          x0.w + x1.w};
+      float sv[4], mx = REPRO_NEG_INF;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sv[e] = (msk >> e) & 1u ? v[e] * scale2 : REPRO_NEG_INF;
+        mx = fmaxf(mx, sv[e]);
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(REPRO_FULL_MASK, mx, o));
+      const float m_old = mrun[hs];
+      const float mn = fmaxf(m_old, mx);
+      float p[4], sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = (msk >> e) & 1u ? exp2f(sv[e] - mn) : 0.f;
+        sum += p[e];
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        sum += __shfl_xor_sync(REPRO_FULL_MASK, sum, o);
+      __nv_bfloat162* pw =
+          reinterpret_cast<__nv_bfloat162*>(pb + hs * PLD + j0);
+      pw[0] = __floats2bfloat162_rn(p[0], p[1]);
+      pw[1] = __floats2bfloat162_rn(p[2], p[3]);
+      if ((tid & 7) == 0) {
+        const float al = exp2f(m_old - mn);
+        mrun[hs] = mn;
+        lrun[hs] = al * lrun[hs] + sum;
+        alph[hs] = al;
+      }
+    }
+    __syncthreads();                           // P and the rescales
+
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float al_a = alph[m * 16 + gid], al_b = alph[m * 16 + gid + 8];
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          acc[m][c][h2][0] *= al_a;
+          acc[m][c][h2][1] *= al_a;
+          acc[m][c][h2][2] *= al_b;
+          acc[m][c][h2][3] *= al_b;
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < TPS; ++t) {
+      if (t >= ne) continue;                   // block-uniform
+      const __nv_bfloat16* vt = kt + t * WT * LD;
+      uint32_t vf[CB][4];
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        repro_ldsm_x4_trans(vf[c], vt + (lane & 15) * LD +
+                                       (warp * CB + c) * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        uint32_t pf[4];
+        repro_ldsm_x4(pf, pb + (m * 16 + (lane & 15)) * PLD + t * WT +
+                              (lane >> 4) * 8);
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+            repro_mma_bf16(acc[m][c][h2], pf, vf[c][2 * h2],
+                           vf[c][2 * h2 + 1]);
+      }
+    }
+    if (!ends_row(sh, s, nst)) continue;       // block-uniform
+
+    // the row's partial of this head group, at g + row; then the running
+    // state starts again
+    const long long base = (static_cast<long long>(g) + b) * a.H + h0;
+    if (tid == 0 && hg == 0)
+      mark_row(sh, b, sh.stage_at[s + 1], first, last, g);
+    if (tid < HB) {
+      if (h0 + tid < a.H) {
+        part_m[base + tid] = mrun[tid];
+        part_l[base + tid] = lrun[tid];
+      }
+      mrun[tid] = REPRO_NEG_INF;
+      lrun[tid] = 0.f;
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int col = (warp * CB + c) * 16 + h2 * 8 + 2 * tig;
+          const int ha = m * 16 + gid, hb = ha + 8;
+          if (h0 + ha < a.H)
+            *reinterpret_cast<float2*>(part_acc + (base + ha) * R + col) =
+                make_float2(acc[m][c][h2][0], acc[m][c][h2][1]);
+          if (h0 + hb < a.H)
+            *reinterpret_cast<float2*>(part_acc + (base + hb) * R + col) =
+                make_float2(acc[m][c][h2][2], acc[m][c][h2][3]);
+          acc[m][c][h2][0] = acc[m][c][h2][1] = acc[m][c][h2][2] =
+              acc[m][c][h2][3] = 0.f;
+        }
+  }
+  repro_cp_async_wait<0>();
+}
+
+cudaError_t launch(const void* q, const void* ckv, const void* krope,
+                   const void* valid, void* o, int* counts, int* first,
+                   int* last, int* list, float* pm, float* pl, float* pacc,
+                   const Args& a, cudaStream_t st) {
+  static bool optin[REPRO_MAX_DEVICES] = {};
+  mla_wide_list_kernel<<<a.B, 256, 0, st>>>(
+      static_cast<const uint8_t*>(valid), counts, first, last, list, pl, a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = repro_smem_optin(mla_wide_tile_kernel, smem, optin);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.H + HB - 1) / HB, a.G);
+  mla_wide_tile_kernel<<<grid, NW * 32, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(ckv),
+      static_cast<const __nv_bfloat16*>(krope), counts, list, first, last, pm,
+      pl, pacc, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mla_wide_merge_kernel<<<dim3(a.B, a.H), 128, 2 * sizeof(float) * a.G, st>>>(
+      first, last, pm, pl, pacc, static_cast<__nv_bfloat16*>(o), a);
+  return cudaGetLastError();
+}
+
+}  // namespace wide
 
 }  // namespace
 
@@ -839,4 +1220,33 @@ extern "C" int mla_decode_fwd(const void* q, const void* ckv,
       err = merge<float>(first, last, pm, pl, pacc, o, a, st);
   }
   return static_cast<int>(err);
+}
+
+// The wide-head entry: as mla_decode_fwd, bf16 only, (R, RP) = (512, 64),
+// 1 <= H <= 128, and ceil(B * ceil(T / 16) / 256) <= G <= 4096.
+extern "C" int mla_decode_wide_fwd(const void* q, const void* ckv,
+                                   const void* krope, const void* valid,
+                                   void* o, void* idx, void* part, int dtype,
+                                   int B, int T, int H, int R, int RP, int G,
+                                   long long sqb, long long sqh,
+                                   long long scb, long long sct,
+                                   long long srb, long long srt,
+                                   long long smb, long long sob,
+                                   long long soh, float scale, void* stream) {
+  const long long ntile = (T + WT - 1) / WT;
+  if (dtype != REPRO_BF16 || R != wide::R || RP != wide::RP || B <= 0 ||
+      B > BMAX || T <= 0 || T > TMAX || H <= 0 || H > wide::HWMAX ||
+      G <= 0 || G > GMAX || (B * ntile + G - 1) / G > wide::MAXTW)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{sqb, sqh, scb, sct, srb, srt, smb, sob, soh,
+         B, T, H, R, RP, G, scale};
+  int* counts = static_cast<int*>(idx);
+  int* first = counts + B;
+  int* last = first + B;
+  int* list = last + B;
+  const long long rows = static_cast<long long>(G + B) * H;
+  float* pm = static_cast<float*>(part);
+  return static_cast<int>(wide::launch(
+      q, ckv, krope, valid, o, counts, first, last, list, pm, pm + rows,
+      pm + 2 * rows, a, static_cast<cudaStream_t>(stream)));
 }

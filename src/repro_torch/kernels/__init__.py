@@ -15,6 +15,7 @@ rglru              CUDA     repro/kernels/rglru.py::rglru_scan_kernel
 mla_decode         CUDA     no Pallas kernel: MLA decode in the latent
                             space, in place of the up-projected einsums
                             of repro/models/attention.py::mla_decode
+                            (``mla_decode_wide`` past 16 heads)
 =================  =======  ==========================================
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import decode_attention as _dec
 from repro_torch.kernels.flash_attention import flash_attention as _fa
 from repro_torch.kernels.mla_decode import mla_decode as _mla
+from repro_torch.kernels.mla_decode import mla_decode_wide as _mla_wide
 from repro_torch.kernels.rglru import rglru_scan as _rglru
 from repro_torch.kernels.rmsnorm import rmsnorm as _rms
 from repro_torch.kernels.ssd import ssd_scan as _ssd
@@ -33,7 +35,8 @@ from repro_torch.kernels.ssd import ssd_scan as _ssd
 #: raises by one where it launches its kernel, and nowhere else
 WRAPPERS = {"rmsnorm": _rms, "flash_attention": _fa,
             "decode_attention": _dec, "ssd_scan": _ssd,
-            "rglru_scan": _rglru, "mla_decode": _mla}
+            "rglru_scan": _rglru, "mla_decode": _mla,
+            "mla_decode_wide": _mla_wide}
 # every count: (the wrapper that holds it, its attribute)
 _COUNTERS = {**{name: (fn, "launches") for name, fn in WRAPPERS.items()},
              "rmsnorm_fused": (_rms, "fused_launches"),
@@ -57,6 +60,9 @@ DEVICE_KERNELS = {
                                   "mla_decode_f32_kernel")),
     "mla_decode_list": ("mla_decode", ("mla_decode_list_kernel",)),
     "mla_decode_merge": ("mla_decode", ("mla_decode_merge_kernel",)),
+    "mla_decode_wide": ("mla_decode_wide", ("mla_wide_tile_kernel",)),
+    "mla_wide_list": ("mla_decode_wide", ("mla_wide_list_kernel",)),
+    "mla_wide_merge": ("mla_decode_wide", ("mla_wide_merge_kernel",)),
 }
 
 

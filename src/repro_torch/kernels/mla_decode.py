@@ -18,6 +18,11 @@ equal runs, one a block, so rows of any context share the card evenly;
 the second merges each row's partials. It captures into a CUDA graph: it
 allocates nothing but its output and scratch through PyTorch, and does
 not synchronise.
+
+Past 16 heads (DeepSeek-V3's 128) ``mla_decode_wide`` launches the same
+passes around a wider first pass: a block takes 64 heads, so a run's
+accumulators (64 x 512 fp32) fit its registers, and each valid latent is
+read ceil(H / 64) times (``csrc/mla_decode.cu``, namespace ``wide``).
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mla_decode as mla_decode_plain
 
-__all__ = ["grid_plan", "mla_decode", "mla_decode_plain"]
+__all__ = ["grid_plan", "grid_plan_wide", "mla_decode", "mla_decode_plain",
+           "mla_decode_wide"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # ReproDType in common.cuh
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -44,15 +50,54 @@ F32_RMAX, F32_DKMAX = 512, 576
 #: blocks of the first pass per SM: the bf16 block takes 207 KB of shared
 #: memory, so one fits an SM
 BLOCKS_PER_SM = 1
+#: the wide-head entry (``mla_decode_wide``): most heads, heads a block,
+#: most live tiles a run, and runs per SM and head group (its block takes
+#: 216 KB of shared memory: one an SM)
+WIDE_HMAX = 128
+WIDE_HEADS = 64
+WIDE_MAXT = 256
+WIDE_WIDTHS = (512, 64)
+WIDE_RUNS_PER_SM = 2
 
 
 def _lib():
     lib = _build.load("mla_decode")
-    fn = lib.mla_decode_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 7 + [_L] * 9 + [ctypes.c_float, _P]
-        fn.restype = _I
+    for fn in (lib.mla_decode_fwd, lib.mla_decode_wide_fwd):
+        if fn.argtypes is None:
+            fn.argtypes = [_P] * 7 + [_I] * 7 + [_L] * 9 + [ctypes.c_float,
+                                                            _P]
+            fn.restype = _I
     return lib
+
+
+def _refuse_grad(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no gradient: the kernel has no backward (MLA "
+            "decode serves; training runs mla_forward); call it under "
+            "torch.no_grad()")
+
+
+def _launch(entry: str, q, c_kv, k_rope, valid, scale: float,
+            G: int) -> torch.Tensor:
+    """The C entry ``entry`` of ``csrc/mla_decode.cu`` over G runs of the
+    first pass: o_lat (B,H,R), with its scratch."""
+    B, H, _ = q.shape
+    T, R = c_kv.shape[1], c_kv.shape[2]
+    o = torch.empty((B, H, R), dtype=q.dtype, device=q.device)
+    idx = torch.empty(B * (3 + -(-T // TILE)), dtype=torch.int32,
+                      device=q.device)
+    part = torch.empty((G + B) * H * (R + 2), dtype=torch.float32,
+                       device=q.device)
+    lib = _lib()
+    rc = getattr(lib, entry)(
+        q.data_ptr(), c_kv.data_ptr(), k_rope.data_ptr(), valid.data_ptr(),
+        o.data_ptr(), idx.data_ptr(), part.data_ptr(), _DTYPES[q.dtype], B,
+        T, H, R, k_rope.shape[2], G, q.stride(0), q.stride(1), c_kv.stride(0),
+        c_kv.stride(1), k_rope.stride(0), k_rope.stride(1), valid.stride(0),
+        o.stride(0), o.stride(1), scale, _build.stream_ptr(q))
+    _build.check(lib, rc, entry[:-len("_fwd")])
+    return o
 
 
 def _check(q, c_kv, k_rope, valid):
@@ -121,34 +166,69 @@ def mla_decode(q: torch.Tensor, c_kv: torch.Tensor, k_rope: torch.Tensor,
     the plain version, a CUDA tensor launches the kernel; the operands'
     shapes, dtypes and strides are checked on both, the kernel's own limits
     on the card."""
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (q, c_kv, k_rope)):
-        raise RuntimeError(
-            "mla_decode has no gradient: the kernel has no backward (MLA "
-            "decode serves; training runs mla_forward); call it under "
-            "torch.no_grad()")
+    _refuse_grad("mla_decode", q, c_kv, k_rope)
     _check(q, c_kv, k_rope, valid)
     if not _build.use_kernel(q):
         return mla_decode_plain(q, c_kv, k_rope, valid, scale)
     _check_kernel(q, c_kv, k_rope)
-    B, H, _ = q.shape
-    T, R = c_kv.shape[1], c_kv.shape[2]
-    G = grid_plan(B, T, _num_sms(q.device.index or 0))
-    o = torch.empty((B, H, R), dtype=q.dtype, device=q.device)
-    idx = torch.empty(B * (3 + -(-T // TILE)), dtype=torch.int32,
-                      device=q.device)
-    part = torch.empty((G + B) * H * (R + 2), dtype=torch.float32,
-                       device=q.device)
-    lib = _lib()
-    rc = lib.mla_decode_fwd(
-        q.data_ptr(), c_kv.data_ptr(), k_rope.data_ptr(), valid.data_ptr(),
-        o.data_ptr(), idx.data_ptr(), part.data_ptr(), _DTYPES[q.dtype], B,
-        T, H, R, k_rope.shape[2], G, q.stride(0), q.stride(1), c_kv.stride(0),
-        c_kv.stride(1), k_rope.stride(0), k_rope.stride(1), valid.stride(0),
-        o.stride(0), o.stride(1), scale, _build.stream_ptr(q))
-    _build.check(lib, rc, "mla_decode")
+    G = grid_plan(q.shape[0], c_kv.shape[1], _num_sms(q.device.index or 0))
+    o = _launch("mla_decode_fwd", q, c_kv, k_rope, valid, scale, G)
     mla_decode.launches += 1
     return o
 
 
 mla_decode.launches = 0
+
+
+def grid_plan_wide(B: int, T: int, H: int, num_sms: int) -> int:
+    """The wide entry's runs (each taken by ceil(H / 64) blocks, one a head
+    group): ``WIDE_RUNS_PER_SM`` an SM over the head groups (at most
+    GMAX), and at least enough that none takes more than WIDE_MAXT of the
+    B rows' tiles."""
+    groups = -(-H // WIDE_HEADS)
+    return max(min(GMAX, -(-WIDE_RUNS_PER_SM * num_sms // groups)),
+               -(-B * -(-T // TILE) // WIDE_MAXT))
+
+
+def _check_wide(q, c_kv, k_rope):
+    """What the wide kernel takes besides ``_check``'s: bf16 at R 512 and
+    RP 64, 1..128 heads, 16-byte rows."""
+    B, H, DK = q.shape
+    T, R = c_kv.shape[1], c_kv.shape[2]
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"mla_decode_wide: bf16 only, not {q.dtype}")
+    if (R, DK - R) != WIDE_WIDTHS:
+        raise ValueError(f"mla_decode_wide: widths (R, RP) must be "
+                         f"{WIDE_WIDTHS}, not {(R, DK - R)}")
+    if not 0 < H <= WIDE_HMAX or not 0 < T <= TMAX or not 0 < B <= BMAX:
+        raise ValueError(f"mla_decode_wide: H must be 1..{WIDE_HMAX}, T "
+                         f"1..{TMAX} and B 1..{BMAX}, not {H}, {T} and {B}")
+    if B * -(-T // TILE) > GMAX * WIDE_MAXT:
+        raise ValueError(f"mla_decode_wide: B x ceil(T / {TILE}) must be at "
+                         f"most {GMAX * WIDE_MAXT}, not {B * -(-T // TILE)}")
+    for t in (q, c_kv, k_rope):
+        if t.data_ptr() % 16 or any(s * 2 % 16 for s in t.stride()[:2]):
+            raise ValueError("mla_decode_wide: bf16 rows must be 16-byte "
+                             "aligned")
+
+
+def mla_decode_wide(q: torch.Tensor, c_kv: torch.Tensor,
+                    k_rope: torch.Tensor, valid: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """``mla_decode`` at up to 128 heads (bf16, R 512, RP 64 on the card):
+    the same function and plain version, through its own kernel
+    (``csrc/mla_decode.cu`` namespace ``wide``), which reads each valid
+    latent ceil(H / 64) times. Counted in its own ``launches``."""
+    _refuse_grad("mla_decode_wide", q, c_kv, k_rope)
+    _check(q, c_kv, k_rope, valid)
+    if not _build.use_kernel(q):
+        return mla_decode_plain(q, c_kv, k_rope, valid, scale)
+    _check_wide(q, c_kv, k_rope)
+    G = grid_plan_wide(q.shape[0], c_kv.shape[1], q.shape[1],
+                       _num_sms(q.device.index or 0))
+    o = _launch("mla_decode_wide_fwd", q, c_kv, k_rope, valid, scale, G)
+    mla_decode_wide.launches += 1
+    return o
+
+
+mla_decode_wide.launches = 0

@@ -1,6 +1,7 @@
 """Attention of the port: GQA prefill and decode, the KV cache and its
 sliding-window ring buffer, the chunked (streaming-softmax) reference, MLA
-(DeepSeek-V2's multi-head latent attention over a compressed cache) and
+(DeepSeek-V2's multi-head latent attention over a compressed cache, with
+DeepSeek-V3's compressed queries as an option) and
 whisper's cross-attention to precomputed encoder K/V. Plain paths are
 PyTorch; with ``cfg.use_pallas`` the hand-written Hopper kernels of
 ``repro_torch.kernels`` run GQA's causal prefill and decode and MLA's
@@ -422,11 +423,21 @@ class MLACache(NamedTuple):
 
 
 def init_mla(gen: torch.Generator, cfg: ModelConfig):
+    """MLA's params. With ``cfg.q_lora_rank`` (DeepSeek-V3) the queries are
+    compressed too: ``wq_a`` (d, q_lora), its norm ``q_norm`` and ``wq_b``
+    (q_lora, H * (nope + rope)) in place of ``wq``."""
     dt = cfg.weight_dtype
     H = cfg.num_heads
     qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        r = cfg.q_lora_rank
+        q = {"wq_a": dense_init(gen, (cfg.d_model, r), dt),
+             "q_norm": torch.ones((r,), dtype=dt, device=gen.device),
+             "wq_b": dense_init(gen, (r, H * qk_dim), dt)}
+    else:
+        q = {"wq": dense_init(gen, (cfg.d_model, H * qk_dim), dt)}
     return {
-        "wq": dense_init(gen, (cfg.d_model, H * qk_dim), dt),
+        **q,
         "w_dkv": dense_init(
             gen, (cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_head_dim), dt),
         "kv_norm": torch.ones((cfg.kv_lora_rank,), dtype=dt,
@@ -450,11 +461,22 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _mla_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope: RopeTables):
     """Project q (nope and rope parts) and the compressed kv latents. The
-    latents' norm is the plain RMSNorm, as in the JAX package."""
+    latents' norm is the plain RMSNorm, as in the JAX package; so is the
+    compressed queries' (``q_lora_rank``: q = wq_b . RMSNorm(wq_a . x)),
+    so that every RMSNorm kernel launch stays d_model wide."""
     B, S, _ = x.shape
     H = cfg.num_heads
     qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-    q = split_dim(matmul(x, p["wq"].to(x.dtype)), 2, (H, qk_dim))
+    if cfg.q_lora_rank:
+        if is_dtensor(x):
+            raise NotImplementedError(
+                "compressed MLA queries (q_lora_rank) are not placed")
+        cq = rms_norm(matmul(x, p["wq_a"].to(x.dtype)), p["q_norm"],
+                      cfg.norm_eps)
+        q = matmul(cq, p["wq_b"].to(x.dtype))
+    else:
+        q = matmul(x, p["wq"].to(x.dtype))
+    q = split_dim(q, 2, (H, qk_dim))
     q_nope, q_rope = torch.split(
         q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, rope)
@@ -578,7 +600,8 @@ def _mla_absorbed(p, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope,
     share. The same sum as ``_mla_attend``'s, with no latent up-projected.
     q_nope (B,1,H,nope), q_rope (B,1,H,rope); c_kv (B,T,R); k_rope
     (B,T,rope); valid (B,T). ``cfg.use_pallas`` attends through the kernel
-    (``kernels.mla_decode``), else through its plain version."""
+    (``kernels.mla_decode``; past 16 heads ``kernels.mla_decode_wide``),
+    else through its plain version."""
     B, _, H, _ = q_nope.shape
     R = cfg.kv_lora_rank
     w_uk = p["w_uk"].to(q_nope.dtype).view(R, H, cfg.qk_nope_head_dim)
@@ -590,7 +613,9 @@ def _mla_absorbed(p, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope,
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     if cfg.use_pallas:
         from repro_torch.kernels import ops as kops
-        o_lat = kops.mla_decode(q, c_kv, k_rope, valid, scale)
+        from repro_torch.kernels.mla_decode import HMAX
+        attend = kops.mla_decode if H <= HMAX else kops.mla_decode_wide
+        o_lat = attend(q, c_kv, k_rope, valid, scale)
     else:
         from repro_torch.kernels import ref
         o_lat = ref.mla_decode(q, c_kv, k_rope, valid, scale)

@@ -64,15 +64,22 @@ def ffn_forward(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig):
+    """The router over ``cfg.routed_experts`` experts (with the sigmoid
+    router, its fp32 correction bias ``e_score_correction_bias``, zeros),
+    the ``num_experts`` experts held here and the shared experts."""
     dt = cfg.weight_dtype
     E = cfg.num_experts
     d_ff = cfg.moe_d_ff or cfg.d_ff
     p = {
-        "router": dense_init(gen, (cfg.d_model, E), dt, scale=0.02),
+        "router": dense_init(gen, (cfg.d_model, cfg.routed_experts), dt,
+                             scale=0.02),
         "w_gate": dense_init(gen, (E, cfg.d_model, d_ff), dt),
         "w_in": dense_init(gen, (E, cfg.d_model, d_ff), dt),
         "w_out": dense_init(gen, (E, d_ff, cfg.d_model), dt),
     }
+    if cfg.router_scoring == "sigmoid":
+        p["e_score_correction_bias"] = torch.zeros(
+            (cfg.routed_experts,), dtype=torch.float32, device=gen.device)
     if cfg.num_shared_experts:
         shared_ff = d_ff * cfg.num_shared_experts
         p["shared"] = init_ffn(gen, cfg.replace(d_ff=shared_ff),
@@ -121,11 +128,56 @@ def route(p, cfg: ModelConfig, x: torch.Tensor):
     weights (renormalised) and experts (B,S,K). Among equal probabilities
     the lower expert comes first, as ``jax.lax.top_k`` takes them: a stable
     descending sort, cut to K. No caller draws the router's jitter (the
-    JAX package's models pass no key for it either)."""
+    JAX package's models pass no key for it either). ``router_scoring``
+    "sigmoid" routes as DeepSeek-V3 does (``_route_sigmoid``); E is then
+    ``cfg.routed_experts``."""
+    if cfg.router_scoring == "sigmoid":
+        if is_dtensor(x):
+            raise NotImplementedError("the sigmoid router is not placed")
+        return _route_sigmoid(x, p["router"], p["e_score_correction_bias"],
+                              cfg)
+    if cfg.router_scoring != "softmax":
+        raise ValueError(f"unknown router_scoring {cfg.router_scoring!r}")
+    if cfg.n_group > 1 or cfg.routed_scaling_factor != 1.0:
+        raise NotImplementedError(
+            "group-limited or scaled routing runs with the sigmoid router "
+            "only (DeepSeek-V3's); the softmax router takes the plain top-k")
     if is_dtensor(x):
         from repro_torch.distributed import parallel
         return parallel.route(_route, x, p["router"], cfg.top_k)
     return _route(x, p["router"], cfg.top_k)
+
+
+def _route_sigmoid(x: torch.Tensor, router: torch.Tensor,
+                   bias: torch.Tensor, cfg: ModelConfig):
+    """DeepSeek-V3's router (arXiv:2412.19437 section 2.1.2, the published
+    ``noaux_tc`` gate): s = sigmoid(x . W_r) in fp32 over every routed
+    expert; the choice reads s + b (b the per-expert correction bias): each
+    of ``n_group`` groups scores the sum of its two best, the
+    ``topk_group`` best groups are kept, and the top k of the kept experts
+    are taken; their weights are the unbiased s, renormalised to sum 1 and
+    scaled by ``routed_scaling_factor``. Ties go to the lower group and
+    expert (stable descending sorts). Returns (s, weights, experts) as
+    ``_route`` does."""
+    shape = x.shape[:-1]
+    E, K, G = cfg.routed_experts, cfg.top_k, cfg.n_group
+    scores = torch.sigmoid(_mm_f32(x.reshape(-1, x.shape[-1]), router))
+    choice = scores + bias.float()
+    if G > 1:
+        grouped = choice.view(-1, G, E // G)
+        best2 = torch.topk(grouped, 2, dim=-1).values.sum(-1)     # (N, G)
+        _, order = torch.sort(best2, dim=-1, descending=True, stable=True)
+        kept = torch.zeros_like(best2, dtype=torch.bool).scatter_(
+            1, order[:, :cfg.topk_group], True)
+        choice = grouped.masked_fill(~kept[..., None],
+                                     float("-inf")).view(-1, E)
+    _, idx = torch.sort(choice, dim=-1, descending=True, stable=True)
+    top_idx = idx[:, :K]
+    top_w = scores.gather(-1, top_idx)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-20)
+    top_w = top_w * cfg.routed_scaling_factor
+    return (scores.view(*shape, E), top_w.view(*shape, K),
+            top_idx.view(*shape, K))
 
 
 def _route(x: torch.Tensor, router: torch.Tensor, K: int):
@@ -170,11 +222,19 @@ def moe_forward_dense(p, cfg: ModelConfig, x: torch.Tensor
     """x: (B,S,d). Dense one-hot dispatch: every expert runs on every token
     and the combine weights (zero off a token's top k) mask the result.
     Computes E/top_k times the routed FLOPs, as the JAX package's baseline
-    does."""
+    does. On a chip that holds a share (``cfg.router_experts``) the router
+    picks among all the routed experts, the combine is cut to the first
+    ``num_experts`` (those held here), and the output is their partial sum
+    plus the shared experts', which this chip adds once for its tokens."""
     E = cfg.num_experts
     probs, top_w, top_idx = route(p, cfg, x)
-    onehot = (top_idx[..., None] == torch.arange(E, device=x.device)).float()
+    onehot = (top_idx[..., None] == torch.arange(
+        cfg.routed_experts, device=x.device)).float()
     combine = (onehot * top_w[..., None]).sum(-2)                # (B,S,E)
+    if cfg.routed_experts != E:
+        if is_dtensor(x):
+            raise NotImplementedError("a share of the experts is not placed")
+        combine, probs = combine[..., :E], probs[..., :E]
     experts = (p["w_gate"], p["w_in"], p["w_out"])
     shared = ()
     if is_dtensor(x):
@@ -318,6 +378,10 @@ def moe_forward_capacity(p, cfg: ModelConfig, x: torch.Tensor
     splits the buffer's rows over the data axes too)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
+    if cfg.routed_experts != E:
+        raise NotImplementedError(
+            "the capacity dispatch routes over the experts it holds: a "
+            "share of them (router_experts) runs the dense dispatch")
     probs, top_w, top_idx = route(p, cfg, x)
     C = moe_capacity(cfg, B * S)
     experts = (p["w_gate"], p["w_in"], p["w_out"])

@@ -5,7 +5,9 @@ initializers.
 ``ModelConfig`` has the fields, defaults, ``replace()``, ``reduced()`` and
 ``q_per_kv`` of ``repro.models.common.ModelConfig``, so configs convert
 field for field through ``dataclasses.asdict``; only the dtype properties
-return torch dtypes. ``use_pallas`` keeps its name and means "run the
+return torch dtypes. It adds the port-only fields of ``PORT_FIELDS``
+(DeepSeek-V3's compressed queries and router, and a chip's share of the
+experts), whose defaults leave every other model's path as it was. ``use_pallas`` keeps its name and means "run the
 hand-written Hopper kernels" (``repro_torch.kernels``). Params are plain
 dicts of tensors in the JAX package's layouts: (in, out) weight matrices
 applied as ``x @ W`` and (B, S, H, D) attention tensors.
@@ -58,10 +60,21 @@ class ModelConfig:
     moe_d_ff: int = 0               # per-expert hidden dim (deepseek style)
     first_k_dense: int = 0          # leading dense layers (deepseek)
     router_jitter: float = 0.0
+    # port-only (PORT_FIELDS): DeepSeek-V3's router, sigmoid scores with a
+    # per-expert correction bias that picks (not weighs) the experts, among
+    # the topk_group best of n_group groups, the weights scaled after their
+    # renormalisation; and a chip's share of the experts: num_experts held
+    # here of router_experts routed over (0 = all of them)
+    router_scoring: str = "softmax"  # softmax | sigmoid
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    router_experts: int = 0
 
     # MLA (deepseek)
     use_mla: bool = False
     kv_lora_rank: int = 0
+    q_lora_rank: int = 0            # port-only: 0 = the direct wq
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
@@ -125,6 +138,12 @@ class ModelConfig:
 
     # ------------------------------------------------------------------
     @property
+    def routed_experts(self) -> int:
+        """The experts the router scores: all of them, or, on a chip that
+        holds a share, ``router_experts``."""
+        return self.router_experts or self.num_experts
+
+    @property
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -178,6 +197,13 @@ class ModelConfig:
         if self.attention_window:
             kw.update(attention_window=32)
         return self.replace(**kw)
+
+
+#: the fields the JAX package's config does not have, and their defaults
+PORT_FIELDS = {name: ModelConfig.__dataclass_fields__[name].default
+               for name in ("q_lora_rank", "router_scoring", "n_group",
+                            "topk_group", "routed_scaling_factor",
+                            "router_experts")}
 
 
 # ---------------------------------------------------------------------------

@@ -293,6 +293,76 @@ def test_mla_kernel_reads_strided_operands(cuda):
            mla.mla_decode_plain(q, c_kv, k_rope, valid, 0.07), "bfloat16")
 
 
+# the wide entry (up to 128 heads, bf16 at R 512, RP 64): 16, 64 and 128
+# heads, a head count that fills no 64-head block, T that no tile divides,
+# and DeepSeek-V3's 64 rows
+MLA_WIDE_SHAPES = [(4, 520, 16), (4, 520, 64), (4, 520, 128), (3, 300, 100),
+                   (64, 2048, 128)]
+# one bf16 P a slot (the narrow kernel splits it in hi + lo): each weight
+# rounded with unit roundoff 2^-8, about 2.3e-3 of the output in relative
+# L2, then the output's own rounding to bf16
+MLA_WIDE_REL_L2 = 6e-3
+
+
+def _close_wide(got, want):
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    np.testing.assert_allclose(g, w, **TOL["bfloat16"])
+    assert np.linalg.norm(g - w) <= MLA_WIDE_REL_L2 * np.linalg.norm(w)
+
+
+@pytest.mark.parametrize("B,T,H", MLA_WIDE_SHAPES)
+@pytest.mark.parametrize("holes", [False, True])
+def test_mla_wide_kernel_matches_plain(cuda, B, T, H, holes):
+    """The wide-head MLA decode kernel against its plain version, bf16 at
+    2e-2 (and ``MLA_WIDE_REL_L2``); a row with no valid slot gives 0; one
+    launch, counted as ``mla_decode_wide``."""
+    args = _mla_case(26, B, T, H, 512, 64, "bfloat16", cuda, holes)
+    scale = (128 + 64) ** -0.5
+    before = launch_counts()
+    got = mla.mla_decode_wide(*args, scale)
+    after = launch_counts()
+    assert after["mla_decode_wide"] == before["mla_decode_wide"] + 1
+    assert after["mla_decode"] == before["mla_decode"]
+    assert got.shape == (B, H, 512) and got.dtype == torch.bfloat16
+    if B > 2 and not holes:
+        assert bool((got[-1] == 0).all())
+    _close_wide(got, mla.mla_decode_plain(*args, scale))
+
+
+@pytest.mark.parametrize("runs_per_sm", [1, 8, 64])
+def test_mla_wide_kernel_splits(cuda, monkeypatch, runs_per_sm):
+    """Other cuts into runs (runs that span rows, rows over many runs,
+    empty runs) give the plain version's output; so does a transposed q
+    and latents sliced from larger buffers."""
+    monkeypatch.setattr(mla, "WIDE_RUNS_PER_SM", runs_per_sm)
+    args = _mla_case(27, 32, 2048, 128, 512, 64, "bfloat16", cuda)
+    _close_wide(mla.mla_decode_wide(*args, 0.07),
+                mla.mla_decode_plain(*args, 0.07))
+    B, T, H = 4, 300, 128
+    qh, big_c, big_r = _normal(28, (H, B, 576), (B, T + 7, 520),
+                               (B, T + 3, 72))
+    q = _dev(qh, "bfloat16", cuda).transpose(0, 1)
+    c_kv = _dev(big_c, "bfloat16", cuda)[:, 4:4 + T, :512]
+    k_rope = _dev(big_r, "bfloat16", cuda)[:, 1:1 + T, 8:]
+    valid = torch.from_numpy(
+        np.random.default_rng(29).random((B, T)) < 0.6).to(cuda)
+    _close_wide(mla.mla_decode_wide(q, c_kv, k_rope, valid, 0.07),
+                mla.mla_decode_plain(q, c_kv, k_rope, valid, 0.07))
+
+
+def test_mla_wide_kernel_refuses(cuda):
+    """fp32, other widths and more than 128 heads raise on the card."""
+    args = _mla_case(30, 2, 64, 16, 512, 64, "float32", cuda)
+    with pytest.raises(TypeError):
+        mla.mla_decode_wide(*args, 0.07)
+    args = _mla_case(30, 2, 64, 16, 64, 16, "bfloat16", cuda)
+    with pytest.raises(ValueError):
+        mla.mla_decode_wide(*args, 0.07)
+    args = _mla_case(30, 2, 64, 129, 512, 64, "bfloat16", cuda)
+    with pytest.raises(ValueError):
+        mla.mla_decode_wide(*args, 0.07)
+
+
 # sha256 of the fp32 attention kernels' output bytes, recorded on an H100
 # with the block counts of its 132 SMs: flash at llama3-3b's 64-token
 # bucket, decode at llama3-3b's cache (a group of 3) and recurrentgemma-9b's

@@ -193,11 +193,17 @@ def test_cpu_tensors_run_the_plain_versions_uncounted():
         mla_decode_plain(lat[:, :4], lat[..., :64], lat[..., 64:],
                          torch.ones(2, 8, dtype=torch.bool), 0.1),
         rtol=0, atol=0)
+    torch.testing.assert_close(
+        ops.mla_decode_wide(lat[:, :4], lat[..., :64], lat[..., 64:],
+                            torch.ones(2, 8, dtype=torch.bool), 0.1),
+        mla_decode_plain(lat[:, :4], lat[..., :64], lat[..., 64:],
+                         torch.ones(2, 8, dtype=torch.bool), 0.1),
+        rtol=0, atol=0)
     assert launch_counts() == {"rmsnorm": 0, "rmsnorm_fused": 0,
                                "flash_attention": 0, "decode_attention": 0,
                                "ssd_scan": 0, "rglru_scan": 0,
-                               "mla_decode": 0, "rglru_gated": 0,
-                               "rglru_gated_step": 0}
+                               "mla_decode": 0, "mla_decode_wide": 0,
+                               "rglru_gated": 0, "rglru_gated_step": 0}
 
 
 def test_other_devices_raise():

@@ -29,6 +29,7 @@ import repro_torch.serving
 import repro_torch.serving.cluster
 import repro_torch.workloads
 from repro_torch.serving import EngineConfig, InferenceEngine, TorchBackend
+from test_torch_configs import jax_fields
 
 PORT = (repro_torch.configs, repro_torch.energy, repro_torch.policies,
         repro_torch.serving, repro_torch.serving.cluster,
@@ -63,7 +64,7 @@ def test_config_for_shape_equal(arch):
     for shape in repro.configs.SHAPES:
         assert dataclasses.asdict(repro_torch.configs.get_shape(shape)) == \
             dataclasses.asdict(repro.configs.get_shape(shape))
-        assert dataclasses.asdict(
+        assert jax_fields(
             repro_torch.configs.config_for_shape(arch, shape)) == \
             dataclasses.asdict(repro.configs.config_for_shape(arch, shape))
     assert repro_torch.configs.long_context_window(arch) == \
