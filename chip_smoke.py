@@ -8,7 +8,7 @@ the JAX package ``repro``), needs one CUDA card, and exits non-zero on any
 failure, or when there is no card or no checkout beside it. Phases:
 
 1. Environment: the card's name and power limit, the kernel build (one
-   ``nvcc`` per CUDA source, all six at once), and each kernel's
+   ``nvcc`` per CUDA source, all seven at once), and each kernel's
    registers and spill bytes from ptxas's report.
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, on the sweep shapes of ``tests/test_kernels.py`` and on the
@@ -33,7 +33,11 @@ failure, or when there is no card or no checkout beside it. Phases:
    slots, at its two mixes' contexts, timed beside SDPA over the latents
    as one kv head; its wide entry (``kernels.mla_decode_wide``, bf16) at
    16 to 128 heads, and timed at DeepSeek-V3's 128 heads over the
-   deepseek-v3-671b.longctx cell's 64 rows of 16384 slots.
+   deepseek-v3-671b.longctx cell's 64 rows of 16384 slots. Mamba-2's decode
+   step (``kernels.ssd_step``, which replaces no Pallas kernel): its new
+   state equal to the plain step's bit for bit and y at 2e-5, timed at
+   mamba2-1.3b's widths at the serve phase's batch of 8 and the
+   benchmark's 64; no one PyTorch call computes it.
 3. Models: full-width llama3-3b, mamba2-1.3b, recurrentgemma-9b,
    deepseek-v2-lite-16b (MoE with MLA) and llama4-scout-17b-a16e (MoE,
    GQA 40/8, cut to 2 layers) from a seeded generator, one at a time;
@@ -251,6 +255,12 @@ SWEEP_SSD = [(1, 128, 4, 64, 1, 64, 32), (2, 256, 8, 32, 2, 32, 64),
              (8, 64, 64, 64, 1, 128, 64)]
 MAIN_SSD = [(1, s, 64, 64, 1, 128, s) for s in (1, 2, 64)]
 LONG_SSD = (1, 256, 64, 64, 1, 128, 128)   # two chunks of the config's 128
+# (b, h, p, g, n) of the SSD decode step: mamba2-1.3b at the serve phase's
+# batch of 8 and the benchmark's 64; ragged P, groups and the widest and
+# narrowest N the kernel is built for
+MAIN_SSD_STEP = [(8, 64, 64, 1, 128), (64, 64, 64, 1, 128)]
+SWEEP_SSD_STEP = [(4, 16, 32, 1, 32), (3, 6, 20, 2, 64), (2, 6, 37, 3, 16),
+                  (2, 3, 9, 1, 256)]
 # (B, S, W): the test_rglru_sweep shapes; recurrentgemma-9b's width
 SWEEP_RGLRU = [(1, 64, 128), (2, 256, 256), (3, 128, 384)]
 MAIN_RGLRU = [(1, 64, 4096), (1, 256, 4096)]
@@ -377,6 +387,8 @@ ROWS = {"rmsnorm": ("rmsnorm", MODELS + (AZURE_RUN, TRAINED_RUN)
                                       ("recurrentgemma-9b",)),
         "ssd_scan": ("ssd_scan", ("mamba2-1.3b",)),
         "ssd_scan_c128": ("ssd_scan", ()),
+        "ssd_step": ("ssd_step", ("mamba2-1.3b",)),
+        "ssd_step_b64": ("ssd_step", ()),
         "rglru_scan": ("rglru_scan", ("recurrentgemma-9b",)),
         "rglru_gated_scan": ("rglru_gated", ("recurrentgemma-9b",)),
         "rglru_gated_scan_step": ("rglru_gated_step",
@@ -561,6 +573,7 @@ def check_kernels(torch, dev):
     from repro_torch.kernels import rglru as lru
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssd
+    from repro_torch.kernels import ssd_step as sstep
     gen = torch.Generator(device=dev).manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     failures = []
@@ -682,6 +695,18 @@ def check_kernels(torch, dev):
         main = main or row == "ssd_scan_c128"
         record(row, case + " y", "float32", y, y_r, main, "ssd")
         record(row, case + " state", "float32", st, st_r, main, "ssd")
+    # the decode step: its state bit for bit, y at fp32's tolerance
+    for shape in SWEEP_SSD_STEP + MAIN_SSD_STEP:
+        args = ssd_step_inputs(torch, gen, *shape)
+        want_state = args[-1].clone()
+        y = sstep.ssd_step(*args)
+        y_r = sstep.ssd_step_plain(*args[:-1], want_state)
+        row = "ssd_step_b64" if shape == MAIN_SSD_STEP[1] else "ssd_step"
+        case = "b{} h{} p{} g{} n{}".format(*shape)
+        record(row, case + " y", "float32", y, y_r, shape in MAIN_SSD_STEP,
+               "float32")
+        if not torch.equal(args[-1], want_state):
+            failures.append(f"ssd_step {case}: state != the plain step's")
     for (B, S, W) in SWEEP_RGLRU + MAIN_RGLRU:
         args = rglru_inputs(torch, gen, B, S, W)
         ys, hl = lru.rglru_scan(*args)
@@ -749,6 +774,20 @@ def ssd_inputs(torch, gen, b, s, h, p, g, n, mamba2_decay=False):
     return x, dt, A, B, C
 
 
+def ssd_step_inputs(torch, gen, b, h, p, g, n):
+    """A decode step's operands as the block gives them: x, B and C through
+    silu, dt through softplus, A at mamba2-1.3b's init rates (linspace(1,
+    16)), D near 1, and a state of unit normals."""
+    F = torch.nn.functional
+    x = F.silu(randn(torch, gen, (b, h, p), torch.float32))
+    dt = F.softplus(randn(torch, gen, (b, h), torch.float32) - 2.0)
+    A = torch.linspace(1.0, 16.0, h, device=gen.device)
+    B, C = (F.silu(randn(torch, gen, (b, g, n), torch.float32))
+            for _ in range(2))
+    D = 1.0 + 0.1 * randn(torch, gen, (h,), torch.float32)
+    return x, dt, A, B, C, D, randn(torch, gen, (b, h, p, n), torch.float32)
+
+
 def rglru_inputs(torch, gen, B, S, W):
     """The distributions of tests/test_kernels.py::test_rglru_sweep."""
     F = torch.nn.functional
@@ -789,6 +828,7 @@ def time_kernels(torch, dev, main_err):
     from repro_torch.kernels import rglru as lru
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssd
+    from repro_torch.kernels import ssd_step as sstep
     gen = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
     rows = []
@@ -1005,6 +1045,34 @@ def time_kernels(torch, dev, main_err):
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             kernel_us=kernel_us(torch,
                                 lambda: ssd.ssd_scan(*args, chunk=c))))
+    # the SSD decode step at the serve phase's batch and the benchmark's:
+    # bytes are the state read once and written once, x, y, dt, A, D, B and
+    # C once; operations 6 a state element (B x, dt, S dA, the add, C S')
+    # and 2 a (row, head, p) (D x and its add). At batch 8 the 16.8 MB
+    # state stays in the 50 MB L2 between calls, as it does not in a step
+    say("  library call for ssd_step: none (no single PyTorch call "
+        "computes the decode step)")
+    for row, (b, h, p, g, n) in zip(("ssd_step", "ssd_step_b64"),
+                                    MAIN_SSD_STEP):
+        args = ssd_step_inputs(torch, gen, b, h, p, g, n)
+        nbytes = 4 * (2 * b * h * p * n + 2 * b * h * p + b * h + 2 * h
+                      + 2 * b * g * n)
+        b_ms, b_by = bound_ms(nbytes, 6.0 * b * h * p * n + 2.0 * b * h * p,
+                              "float32")
+
+        def call():
+            return sstep.ssd_step(*args)
+        rows.append(dict(
+            name=row, route="cuda",
+            source="src/repro_torch/csrc/ssd_step.cu",
+            replaces="none: src/repro/models/blocks.py:ssd_block_forward's "
+                     "plain decode step",
+            shape=f"state ({b}, {h}, {p}, {n}), B/C ({b}, {g}, {n}), fp32; "
+                  f"{b * h} blocks",
+            ms=device_ms(torch, call),
+            plain_ms=device_ms(torch, lambda: sstep.ssd_step_plain(*args)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            kernel_us=kernel_us(torch, call)))
     # RG-LRU at recurrentgemma-9b's largest prefill bucket: exp, the
     # clip, sqrt and two products a step, each counted as one operation
     B, S, W = MAIN_RGLRU[0]
@@ -1551,6 +1619,7 @@ def path_launches(cfg, prefill_lengths, dec):
     per forward, flash attention
     L (dense) and the SSD scan L (Mamba-2, at every length); per decode
     step, decode attention L (dense) or once per attention layer (hybrid),
+    the SSD decode step L (Mamba-2),
     under MLA the latent-space MLA decode L instead (an MoE model's norms
     are the dense model's: 2L+1, its latents' norm staying plain, as in the
     JAX package);
@@ -1563,7 +1632,8 @@ def path_launches(cfg, prefill_lengths, dec):
     fwd = len(prefill_lengths)
     if cfg.arch_type == "ssm":
         return {"rmsnorm": (L + 1) * (fwd + dec),
-                "rmsnorm_fused": L * (fwd + dec), "ssd_scan": L * fwd}
+                "rmsnorm_fused": L * (fwd + dec), "ssd_scan": L * fwd,
+                "ssd_step": L * dec}
     norms = {"rmsnorm": (2 * L + 1) * (fwd + dec),
              "rmsnorm_fused": 2 * L * (fwd + dec)}
     if cfg.arch_type == "hybrid":

@@ -16,6 +16,9 @@ mla_decode         CUDA     no Pallas kernel: MLA decode in the latent
                             space, in place of the up-projected einsums
                             of repro/models/attention.py::mla_decode
                             (``mla_decode_wide`` past 16 heads)
+ssd_step           CUDA     no Pallas kernel: Mamba-2's recurrent decode
+                            step, in place of the plain jnp step of
+                            repro/models/blocks.py::ssd_block_forward
 =================  =======  ==========================================
 """
 from __future__ import annotations
@@ -30,13 +33,14 @@ from repro_torch.kernels.mla_decode import mla_decode_wide as _mla_wide
 from repro_torch.kernels.rglru import rglru_scan as _rglru
 from repro_torch.kernels.rmsnorm import rmsnorm as _rms
 from repro_torch.kernels.ssd import ssd_scan as _ssd
+from repro_torch.kernels.ssd_step import ssd_step as _ssd_step
 
 #: the kernel wrappers by name; each carries a ``launches`` count that it
 #: raises by one where it launches its kernel, and nowhere else
 WRAPPERS = {"rmsnorm": _rms, "flash_attention": _fa,
             "decode_attention": _dec, "ssd_scan": _ssd,
             "rglru_scan": _rglru, "mla_decode": _mla,
-            "mla_decode_wide": _mla_wide}
+            "mla_decode_wide": _mla_wide, "ssd_step": _ssd_step}
 # every count: (the wrapper that holds it, its attribute)
 _COUNTERS = {**{name: (fn, "launches") for name, fn in WRAPPERS.items()},
              "rmsnorm_fused": (_rms, "fused_launches"),
@@ -63,6 +67,7 @@ DEVICE_KERNELS = {
     "mla_decode_wide": ("mla_decode_wide", ("mla_wide_tile_kernel",)),
     "mla_wide_list": ("mla_decode_wide", ("mla_wide_list_kernel",)),
     "mla_wide_merge": ("mla_decode_wide", ("mla_wide_merge_kernel",)),
+    "ssd_step": ("ssd_step", ("ssd_step_kernel",)),
 }
 
 

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("rmsnorm", "flash_attention", "decode_attention", "ssd_scan",
-           "rglru_scan", "mla_decode")
+           "rglru_scan", "mla_decode", "ssd_step")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -42,17 +42,26 @@ def use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def refuse_grad(name: str, pallas: str, *tensors: torch.Tensor) -> None:
+def refuse_grad(name: str, pallas: Optional[str],
+                *tensors: torch.Tensor) -> None:
     """Raise where autograd records and an input of the wrapper ``name``
     requires grad: its kernel has no backward, as ``pallas``, the Pallas
     kernel it replaces, has none (JAX refuses to differentiate it), so its
-    output would silently carry no gradient. Every wrapper calls it before
-    it picks the kernel or the plain version, so the CPU refuses too."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    output would silently carry no gradient. ``pallas`` None names a
+    decode kernel that replaces none: training never runs it. Every
+    wrapper calls it before it picks the kernel or the plain version, so
+    the CPU refuses too."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad
+                                            for t in tensors)):
+        return
+    if pallas is None:
         raise RuntimeError(
-            f"{name} has no gradient: {pallas}, the Pallas kernel it "
-            "replaces, has none; train with use_pallas=False, or call it "
-            "under torch.no_grad()")
+            f"{name} has no gradient: the decode kernel has no backward, "
+            "and training never runs it; call it under torch.no_grad()")
+    raise RuntimeError(
+        f"{name} has no gradient: {pallas}, the Pallas kernel it "
+        "replaces, has none; train with use_pallas=False, or call it "
+        "under torch.no_grad()")
 
 
 def build_dir() -> Path:

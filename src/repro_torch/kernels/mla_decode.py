@@ -70,14 +70,6 @@ def _lib():
     return lib
 
 
-def _refuse_grad(name: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} has no gradient: the kernel has no backward (MLA "
-            "decode serves; training runs mla_forward); call it under "
-            "torch.no_grad()")
-
-
 def _launch(entry: str, q, c_kv, k_rope, valid, scale: float,
             G: int) -> torch.Tensor:
     """The C entry ``entry`` of ``csrc/mla_decode.cu`` over G runs of the
@@ -166,7 +158,7 @@ def mla_decode(q: torch.Tensor, c_kv: torch.Tensor, k_rope: torch.Tensor,
     the plain version, a CUDA tensor launches the kernel; the operands'
     shapes, dtypes and strides are checked on both, the kernel's own limits
     on the card."""
-    _refuse_grad("mla_decode", q, c_kv, k_rope)
+    _build.refuse_grad("mla_decode", None, q, c_kv, k_rope)
     _check(q, c_kv, k_rope, valid)
     if not _build.use_kernel(q):
         return mla_decode_plain(q, c_kv, k_rope, valid, scale)
@@ -219,7 +211,7 @@ def mla_decode_wide(q: torch.Tensor, c_kv: torch.Tensor,
     the same function and plain version, through its own kernel
     (``csrc/mla_decode.cu`` namespace ``wide``), which reads each valid
     latent ceil(H / 64) times. Counted in its own ``launches``."""
-    _refuse_grad("mla_decode_wide", q, c_kv, k_rope)
+    _build.refuse_grad("mla_decode_wide", None, q, c_kv, k_rope)
     _check(q, c_kv, k_rope, valid)
     if not _build.use_kernel(q):
         return mla_decode_plain(q, c_kv, k_rope, valid, scale)

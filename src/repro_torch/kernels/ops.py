@@ -17,6 +17,7 @@ from repro_torch.kernels.rglru import rglru_scan as _rglru
 from repro_torch.kernels.rmsnorm import add_rmsnorm as _add_rms
 from repro_torch.kernels.rmsnorm import rmsnorm as _rms
 from repro_torch.kernels.ssd import ssd_scan as _ssd
+from repro_torch.kernels.ssd_step import ssd_step as _ssd_step
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -72,3 +73,10 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
         ck //= 2
     return _ssd(x.float(), dt.float(), A.float(), B.float(), C.float(),
                 chunk=max(ck, 1))
+
+
+def ssd_step(x, dt, A, B, C, D, state):
+    """Mamba-2's decode step: x (B,H,P); dt (B,H); A, D (H,); B, C
+    (B,G,N); state (B,H,P,N) fp32, updated in place -> y (B,H,P), fp32."""
+    return _ssd_step(x.float(), dt.float(), A.float(), B.float(), C.float(),
+                     D.float(), state)

@@ -2,7 +2,9 @@
 jnp oracles in ``repro.kernels.ref``. They run wherever PyTorch runs: the
 wrappers call them for a CPU tensor, and the tests and ``chip_smoke.py``
 hold each kernel against them. The two scans walk time token by token, as
-the oracles do.
+the oracles do. ``ssd_step``, Mamba-2's decode step, has no oracle there:
+it is the model's own step (``repro.models.blocks.ssd_block_forward`` at
+S == 1), and updates the state it is given in place.
 
 One case differs from ``repro.kernels.ref`` on purpose: a decode row with
 no valid slot. The Pallas decode kernel zeroes ``p`` where a slot is
@@ -145,3 +147,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = decay * state + upd
         ys.append(torch.einsum("bhn,bhpn->bhp", Cr[:, t], state))
     return torch.stack(ys, dim=1), state
+
+
+def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+             state: torch.Tensor) -> torch.Tensor:
+    """Mamba-2's recurrent decode step, one token, as the model's S == 1
+    branch computes it: x (b,h,p); dt (b,h), after the softplus; A (h,),
+    exp(A_log); B, C (b,g,n), head i reading group i // (h / g); D (h,);
+    state (b,h,p,n) fp32, updated in place to S' = exp(-dt A) S + dt B x^T.
+    Returns y = C.S' + D x (b,h,p)."""
+    rep = x.shape[1] // B.shape[1]
+    dA = torch.exp(-dt[:, :, None, None] * A[None, :, None, None])
+    Bs = torch.repeat_interleave(B, rep, dim=1)              # (b,h,n)
+    Cs = torch.repeat_interleave(C, rep, dim=1)
+    upd = dt[:, :, None, None] * torch.einsum("bhn,bhp->bhpn", Bs, x)
+    # dA * S + upd, rounded as the JAX package's functional form
+    final = state.mul_(dA).add_(upd)
+    y = torch.einsum("bhn,bhpn->bhp", Cs, final)
+    return y + D[None, :, None] * x

@@ -3,13 +3,14 @@
 dispatch), the RG-LRU recurrent block (Griffin / RecurrentGemma) and the
 Mamba-2 SSD mixer, the counterparts of ``repro.models.blocks``.
 
-With ``cfg.use_pallas`` the SSD scan and the RG-LRU block's gates and
-recurrence run the hand-written Hopper kernels of ``repro_torch.kernels``
-(on a CPU tensor, their plain versions). The fp32 gate products of the
-RG-LRU block are full fp32 matrix products: PyTorch's default keeps TF32
-off for them. Their weights are held in fp32 (``GATES_FP32``): the init
-draws them in the weight dtype and widens them once, which is exact, so
-the products are those of the widened weight in the JAX package.
+With ``cfg.use_pallas`` the SSD scan, the SSD decode step and the RG-LRU
+block's gates and recurrence run the hand-written Hopper kernels of
+``repro_torch.kernels`` (on a CPU tensor, their plain versions). The fp32
+gate products of the RG-LRU block are full fp32 matrix products:
+PyTorch's default keeps TF32 off for them. Their weights are held in fp32
+(``GATES_FP32``): the init draws them in the weight dtype and widens them
+once, which is exact, so the products are those of the widened weight in
+the JAX package.
 
 Given a state, a block writes its new recurrent state into that state's
 tensors and returns it, so a cache keeps its addresses from step to step.
@@ -654,9 +655,10 @@ def ssd_block_forward(p, cfg: ModelConfig, u: torch.Tensor,
                       state: Optional[SSDState] = None
                       ) -> Tuple[torch.Tensor, SSDState]:
     """Full Mamba-2 block. u: (B,S,d_model). S==1 with a state: the
-    recurrent decode step (plain PyTorch, as in the JAX package), which
-    scales and adds into ``state.ssm`` itself. Placed operands run the SSD
-    on each rank's heads (``distributed.parallel.ssd_heads``)."""
+    recurrent decode step, which writes the new state into ``state.ssm``
+    itself (with ``cfg.use_pallas`` through the ``ssd_step`` kernel, else
+    plain PyTorch, as in the JAX package). Placed operands run the SSD on
+    each rank's heads (``distributed.parallel.ssd_heads``)."""
     z, xBC, dt = _ssd_split(p, cfg, u)
     tail = state.conv if state is not None else None
     xBC, new_tail = _causal_conv(xBC, p["conv_w"].to(xBC.dtype), tail)
@@ -715,17 +717,13 @@ def _ssd_heads(cfg: ModelConfig, z, x, Bmat, Cmat, dt, dt_bias, A_log, D,
     dt = F.softplus(dt.float() + dt_bias)                    # (B,S,H)
     A = torch.exp(A_log)                                     # (H,) > 0
     if S == 1 and ssm is not None:
-        # recurrent step: S' = exp(-dt*A) S + dt * B x^T ; y = C.S' + D x
-        dA = torch.exp(-dt[:, 0, :, None, None] * A[None, :, None, None])
-        rep = H // G
-        Bs = torch.repeat_interleave(Bmat[:, 0], rep, dim=1)  # (B,H,N)
-        Cs = torch.repeat_interleave(Cmat[:, 0], rep, dim=1)
-        upd = dt[:, 0, :, None, None] * torch.einsum(
-            "bhn,bhp->bhpn", Bs, x[:, 0])
-        # dA * S + upd, rounded as the JAX package's functional form
-        final = ssm.mul_(dA).add_(upd)
-        y = torch.einsum("bhn,bhpn->bhp", Cs, final)
-        y = y + D[None, :, None] * x[:, 0]
+        # recurrent step: S' = exp(-dt*A) S + dt * B x^T ; y = C.S' + D x,
+        # S' written into ``ssm``; with cfg.use_pallas through the kernel
+        # (``kernels.ssd_step``)
+        from repro_torch.kernels import ops as kops, ref
+        args = (x[:, 0], dt[:, 0], A, Bmat[:, 0], Cmat[:, 0], D, ssm)
+        y = kops.ssd_step(*args) if cfg.use_pallas else ref.ssd_step(*args)
+        final = ssm
         y = y[:, None]                                       # (B,1,H,P)
     else:
         # a prefill starts from a zero state, as in the JAX package

@@ -9,7 +9,8 @@ Inputs come from numpy with a seed. Tolerances: 2e-5 in fp32 and 2e-2 in
 bf16 for the attention kernels and RMSNorm (the fused residual sum bit for
 bit), 2e-4 for the SSD scan and 1e-5
 for the RG-LRU scan (``tests/test_kernels.py``; its fused form's fp32
-output too); 5e-4 for a small fp32
+output too); the SSD decode step's new state bit for bit and its output
+at 2e-5 (the sum over N in another order); 5e-4 for a small fp32
 model through the kernels against the same model through the plain
 versions. A bf16 output must also lie within a relative L2 of 1e-3 of the
 plain version's, as ``chip_smoke.py`` holds it (``BF16_REL_L2``).
@@ -36,6 +37,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rglru as lru
 from repro_torch.kernels import rmsnorm as rms
 from repro_torch.kernels import ssd
+from repro_torch.kernels.ssd_step import ssd_step_plain
 from repro_torch.models import (build_model, tree_clone, tree_map,
                                 tree_tensors)
 from repro_torch.serving import BatchPlan, Request, TorchBackend
@@ -461,6 +463,71 @@ def test_ssd_kernel_reads_strided_inputs(cuda):
                                **SSD_TOL)
 
 
+# (b, h, p, g, n) of the decode step: mamba2-1.3b's serving shape (batch
+# 64), its reduced copy, and ragged shapes: a P that no pass of rows
+# divides, two and three groups, and the narrowest and widest N built
+SSD_STEP_SHAPES = [(64, 64, 64, 1, 128), (4, 16, 32, 1, 32),
+                   (3, 6, 20, 2, 64), (2, 6, 37, 3, 16), (2, 3, 9, 1, 256)]
+
+
+def _ssd_step_inputs(seed, b, h, p, g, n, device, fused=False):
+    """A decode step's operands as the block gives them (x, B and C through
+    silu, dt through softplus, A at mamba2's init rates) and a state from
+    earlier steps; with ``fused`` x, B and C are views of one (b, d)
+    buffer, as the model splits them from the conv's output."""
+    rng = np.random.default_rng(seed)
+    silu = torch.nn.functional.silu
+    x, B, C = (silu(torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(device)) for s in ((b, h * p), (b, g * n),
+                                           (b, g * n)))
+    if fused:
+        x, B, C = torch.split(torch.cat([x, B, C], dim=-1),
+                              [h * p, g * n, g * n], dim=-1)
+    dt = np.log1p(np.exp(rng.standard_normal((b, h)) - 2.0))
+    D = 1.0 + 0.1 * rng.standard_normal(h)
+    dt, A, D = (torch.from_numpy(a.astype(np.float32)).to(device)
+                for a in (dt, np.linspace(1.0, 16.0, h), D))
+    state = torch.from_numpy(rng.standard_normal((b, h, p, n)).astype(
+        np.float32)).to(device)
+    return (x.view(b, h, p), dt, A, B.view(b, g, n), C.view(b, g, n), D,
+            state)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("b,h,p,g,n", SSD_STEP_SHAPES)
+def test_ssd_step_kernel_matches_plain(cuda, b, h, p, g, n, fused):
+    """The decode step's kernel against its plain version on the card: one
+    launch, the new state bit for bit (the update rounded as the plain step
+    rounds it), y within fp32's 2e-5 (its sum over N in another order); x,
+    B and C contiguous or read in place from one fused buffer."""
+    args = _ssd_step_inputs(10, b, h, p, g, n, cuda, fused)
+    state = args[-1]
+    want_state = state.clone()
+    before = launch_counts()["ssd_step"]
+    y = ops.ssd_step(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_step"] == before + 1
+    want = ssd_step_plain(*args[:-1], want_state)
+    assert torch.equal(state, want_state)
+    np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(),
+                               **TOL["float32"])
+
+
+def test_ssd_step_kernel_refuses(cuda):
+    """What the kernel does not take raises before a launch: a width it is
+    not built for, and state rows off 16 bytes."""
+    before = launch_counts()["ssd_step"]
+    args = list(_ssd_step_inputs(11, 2, 4, 8, 1, 48, cuda))
+    with pytest.raises(ValueError, match="N must be one of"):
+        ops.ssd_step(*args)
+    args = list(_ssd_step_inputs(11, 2, 4, 8, 1, 32, cuda))
+    args[-1] = torch.zeros(2 * 4 * 8 * 32 + 1, device=cuda)[1:].view(
+        2, 4, 8, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.ssd_step(*args)
+    assert launch_counts()["ssd_step"] == before
+
+
 def test_ssd_kernel_reads_misaligned_inputs(cuda):
     """x, B and C at an odd offset inside one fused buffer, so that no row
     is 16-byte aligned: the kernel's synchronous copies, same output."""
@@ -686,18 +753,18 @@ def _hybrid_counts(L):
 
 
 @pytest.mark.parametrize("arch,counts", [
-    ("mamba2-1.3b", lambda L: ({"ssd_scan": L, "rmsnorm": L + 1,
-                                "rmsnorm_fused": L},
-                               {"ssd_scan": 0, "rmsnorm": L + 1,
-                                "rmsnorm_fused": L})),
+    ("mamba2-1.3b", lambda L: ({"ssd_scan": L, "ssd_step": 0,
+                                "rmsnorm": L + 1, "rmsnorm_fused": L},
+                               {"ssd_scan": 0, "ssd_step": L,
+                                "rmsnorm": L + 1, "rmsnorm_fused": L})),
     ("recurrentgemma-9b", _hybrid_counts),
 ])
 def test_kernel_state_models_match_plain(cuda, arch, counts):
     """Reduced Mamba-2 and RecurrentGemma (5 layers: a unit and a tail) in
     fp32: forward through the kernels against the plain versions, with the
     launches the path should make; then one decode step of each, with its
-    launches (RecurrentGemma's recurrence is one fused RG-LRU launch a rec
-    layer there too)."""
+    launches (Mamba-2's state update is one ``ssd_step`` launch a layer,
+    RecurrentGemma's recurrence one fused RG-LRU launch a rec layer)."""
     cfg = get_config(arch).reduced()
     if cfg.arch_type == "hybrid":
         cfg = cfg.replace(num_layers=5)
@@ -884,6 +951,34 @@ def test_graphed_deepseek_decode_at_full_width_matches_eager(cuda):
                 assert torch.equal(a, b), step
 
 
+def test_graphed_mamba2_decode_at_full_width_matches_eager(cuda):
+    """mamba2-1.3b at full width and depth, bf16, at the benchmark's batch
+    of 64: the decode graph launches the ``ssd_step`` kernel once a layer
+    (48) and no prefill graph launches it; two replays from a random state
+    equal the eager steps bit for bit, logits and cache."""
+    cfg = get_config("mamba2-1.3b")
+    backend = TorchBackend(cfg, max_batch=64, cache_len=64, device=cuda)
+    assert backend.decode_graph.launches["ssd_step"] == cfg.num_layers == 48
+    for n, graph in backend.prefill_graphs.items():
+        assert graph.launches.get("ssd_step", 0) == 0, n
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for t in tree_tensors(backend.cache):
+        t.normal_(generator=gen)
+    ref = tree_clone(backend.cache)
+    pos = torch.full((64,), 8, dtype=torch.long, device=cuda)
+    with torch.no_grad():
+        for step in range(2):
+            backend.pos.copy_(pos + step)
+            backend.token.random_(0, cfg.vocab_size, generator=gen)
+            got = backend.decode_graph()
+            want = backend.model.decode_step(backend.params, backend.token,
+                                             ref, pos + step)[0]
+            assert torch.equal(got, want), step
+            for a, b in zip(tree_tensors(backend.cache),
+                            tree_tensors(ref)):
+                assert torch.equal(a, b), step
+
+
 def test_a_failed_capture_raises(cuda, monkeypatch):
     """A kernel wrapper that raises under capture makes the backend raise:
     no backend comes back, none that runs eagerly."""
@@ -1024,13 +1119,17 @@ def _refusal_cases(device):
                              (lx, lx, lx, lam, lx, h0)),
         "mla_decode": (lambda *a: ops.mla_decode(*a, 0.1),
                        (r(1, 4, 80), r(1, 8, 64), r(1, 8, 16), valid)),
+        "ssd_step": (ops.ssd_step, (r(2, 4, 8), r(2, 4).abs(), r(4).abs(),
+                                    r(2, 1, 16), r(2, 1, 16), r(4),
+                                    r(2, 4, 8, 16))),
     }
 
 
 @pytest.mark.parametrize("name", ["rmsnorm", "add_rmsnorm",
                                   "flash_attention", "decode_attention",
                                   "ssd_scan", "rglru_scan",
-                                  "rglru_gated_scan", "mla_decode"])
+                                  "rglru_gated_scan", "mla_decode",
+                                  "ssd_step"])
 def test_kernel_wrappers_refuse_autograd_on_the_card(cuda, name):
     """Each wrapper, given CUDA tensors of which one requires grad, raises
     and launches nothing; under ``torch.no_grad()`` it launches."""

@@ -45,7 +45,8 @@ def test_engine_with_real_torch_execution():
                                "flash_attention": 0, "decode_attention": 0,
                                "ssd_scan": 0, "rglru_scan": 0,
                                "mla_decode": 0, "mla_decode_wide": 0,
-                               "rglru_gated": 0, "rglru_gated_step": 0}
+                               "ssd_step": 0, "rglru_gated": 0,
+                               "rglru_gated_step": 0}
 
 
 def test_backend_defaults_to_h100_and_the_registered_agft():

@@ -22,6 +22,7 @@ from repro_torch.kernels import rglru as lru
 from repro_torch.kernels import rmsnorm as rms
 from repro_torch.kernels import ssd
 from repro_torch.kernels.mla_decode import mla_decode_plain
+from repro_torch.kernels.ssd_step import ssd_step_plain
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -199,11 +200,22 @@ def test_cpu_tensors_run_the_plain_versions_uncounted():
         mla_decode_plain(lat[:, :4], lat[..., :64], lat[..., 64:],
                          torch.ones(2, 8, dtype=torch.bool), 0.1),
         rtol=0, atol=0)
+    # the decode step writes its state: each side steps its own copy
+    st = torch.randn(2, 4, 8, 16)
+    st_plain = st.clone()
+    sx, sdt = torch.randn(2, 4, 8), torch.rand(2, 4)
+    sbc = torch.randn(2, 1, 16)
+    torch.testing.assert_close(
+        ops.ssd_step(sx, sdt, torch.ones(4), sbc, sbc, torch.ones(4), st),
+        ssd_step_plain(sx, sdt, torch.ones(4), sbc, sbc, torch.ones(4),
+                       st_plain), rtol=0, atol=0)
+    assert torch.equal(st, st_plain)
     assert launch_counts() == {"rmsnorm": 0, "rmsnorm_fused": 0,
                                "flash_attention": 0, "decode_attention": 0,
                                "ssd_scan": 0, "rglru_scan": 0,
                                "mla_decode": 0, "mla_decode_wide": 0,
-                               "rglru_gated": 0, "rglru_gated_step": 0}
+                               "ssd_step": 0, "rglru_gated": 0,
+                               "rglru_gated_step": 0}
 
 
 def test_other_devices_raise():
@@ -224,6 +236,11 @@ def test_other_devices_raise():
         ops.rglru_scan(q[0], q[0], q[0, 0])
     with pytest.raises(ValueError):
         ops.rglru_gated_scan(q[0], q[0], q[0], q[0, 0, 0], q[0], q[0, 0])
+    step = [torch.empty(shape, device="meta") for shape in
+            ((2, 4, 8), (2, 4), (4,), (2, 1, 16), (2, 1, 16), (4,),
+             (2, 4, 8, 16))]
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        ops.ssd_step(*step)
 
 
 @pytest.mark.parametrize("b,s,chunk,blocks,stages", [

@@ -7,9 +7,11 @@ Inputs come from numpy with a seed and go through both frameworks.
 Tolerances are the reference tests': the SSD scan 2e-4
 (``tests/test_kernels.py::test_ssd_sweep``), logits 5e-4 with
 ``use_pallas`` off and on, prefill vs forward 2e-4 and decode vs forward
-1e-3 (``tests/test_models_smoke.py``), decode steps against JAX's 1e-3.
-The hand-written SSD kernel is held against the plain version on the card
-by ``tests/test_torch_cuda.py``.
+1e-3 (``tests/test_models_smoke.py``), decode steps against JAX's 1e-3
+(a block's step 1e-4, the states' tolerance). The decode step's plain
+version (``kernels.ref.ssd_step``) gives the model's inline step's bits.
+The hand-written SSD kernels are held against their plain versions on the
+card by ``tests/test_torch_cuda.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -220,6 +222,119 @@ def test_decode_steps_match_jax():
         _close(tl.numpy(), jl, rtol=1e-3, atol=1e-3)
     _close(tcache.ssm.numpy(), jcache.ssm, rtol=1e-4, atol=1e-4)
     _close(tcache.conv.numpy(), jcache.conv, rtol=1e-4, atol=1e-4)
+
+
+def _branch_step(x, dt, A, B, C, D, ssm):
+    """The model's decode step as ``blocks._ssd_heads`` computed it inline
+    before it called ``kernels.ssd_step``: the plain version's yardstick."""
+    H, G = x.shape[1], B.shape[1]
+    dA = torch.exp(-dt[:, :, None, None] * A[None, :, None, None])
+    Bs = torch.repeat_interleave(B, H // G, dim=1)
+    Cs = torch.repeat_interleave(C, H // G, dim=1)
+    upd = dt[:, :, None, None] * torch.einsum("bhn,bhp->bhpn", Bs, x)
+    final = ssm.mul_(dA).add_(upd)
+    y = torch.einsum("bhn,bhpn->bhp", Cs, final)
+    return y + D[None, :, None] * x
+
+
+def _step_inputs(seed, b, h, p, g, n):
+    """A decode step's operands as the block gives them: x, B and C through
+    silu, dt through softplus, A = exp(A_log) at mamba2's init rates, and a
+    state from earlier steps."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    def silu(a):
+        return (a / (1.0 + np.exp(-a))).astype(f)
+
+    x = silu(rng.standard_normal((b, h, p)))
+    dt = np.log1p(np.exp(rng.standard_normal((b, h)) - 2.0)).astype(f)
+    A = np.linspace(1.0, 16.0, h).astype(f)
+    B, C = (silu(rng.standard_normal((b, g, n))) for _ in range(2))
+    D = (1.0 + 0.1 * rng.standard_normal(h)).astype(f)
+    state = rng.standard_normal((b, h, p, n)).astype(f)
+    return x, dt, A, B, C, D, state
+
+
+@pytest.mark.parametrize("b,h,p,g,n", [(3, 4, 16, 1, 32), (2, 6, 8, 2, 16),
+                                       (2, 64, 64, 1, 128)])
+def test_ssd_step_plain_is_the_branch(b, h, p, g, n):
+    """``ref.ssd_step`` gives the branch's bits, y and state, at the sweep's
+    widths, two groups and mamba2-1.3b's heads; it writes the state it is
+    given and returns the step's output."""
+    ins = [torch.from_numpy(a) for a in _step_inputs(0, b, h, p, g, n)]
+    state, want_state = ins[-1], ins[-1].clone()
+    ptr = state.data_ptr()
+    y = ops.ssd_step(*ins)
+    want = _branch_step(*ins[:-1], want_state)
+    assert y.shape == (b, h, p) and state.data_ptr() == ptr
+    assert torch.equal(y, want)
+    assert torch.equal(state, want_state)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_decode_block_matches_jax(use_pallas):
+    """A Mamba-2 block's decode step from a random state and conv tail, on
+    the JAX init's weights: its output and new state against the JAX
+    package's at the model's tolerance (1e-4, the states' in
+    ``test_decode_steps_match_jax``), the new state written into the state
+    given, and on the CPU no kernel launch with ``use_pallas`` either."""
+    jm, params, _, tparams, cfg = _models(use_pallas=use_pallas)
+    jlp = jax.tree.map(lambda a: a[0], params["layers"])["mixer"]
+    tlp = tparams["layers"][0]["mixer"]
+    rng = np.random.default_rng(3)
+    B, H, P, N = 3, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * N
+    u = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    ssm = (0.5 * rng.standard_normal((B, H, P, N))).astype(np.float32)
+    tail = rng.standard_normal((B, cfg.conv_kernel - 1,
+                                conv_dim)).astype(np.float32)
+    jout, jstate = jblocks.ssd_block_forward(
+        jlp, jm.cfg, jnp.asarray(u),
+        jblocks.SSDState(ssm=jnp.asarray(ssm), conv=jnp.asarray(tail)))
+    state = blocks.SSDState(ssm=torch.from_numpy(ssm.copy()),
+                            conv=torch.from_numpy(tail.copy()))
+    ptr = state.ssm.data_ptr()
+    reset_launch_counts()
+    out, new = blocks.ssd_block_forward(tlp, cfg, torch.from_numpy(u),
+                                        state=state)
+    assert launch_counts()["ssd_step"] == 0
+    assert new.ssm.data_ptr() == ptr
+    _close(out.numpy(), jout, rtol=1e-4, atol=1e-4)
+    _close(new.ssm.numpy(), jstate.ssm, rtol=1e-4, atol=1e-4)
+    _close(new.conv.numpy(), jstate.conv, rtol=1e-4, atol=1e-4)
+
+
+def test_only_a_step_under_use_pallas_takes_the_kernel(monkeypatch):
+    """With ``use_pallas`` a decode step goes through ``kernels.ssd_step``,
+    without it the plain step; both give the plain path's bits here, on
+    the CPU."""
+    cfg = get_config(ARCH).reduced()
+    H, P, N = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    calls = []
+    real = ops.ssd_step
+
+    def seen(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    monkeypatch.setattr(ops, "ssd_step", seen)
+    rng = np.random.default_rng(4)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    z, x = t(2, 1, H * P), t(2, 1, H * P)
+    Bm, Cm, dt = t(2, 1, N), t(2, 1, N), t(2, 1, H)
+    small = (0.1 * t(H), 0.5 * t(H), 1.0 + 0.1 * t(H))
+    ssm = t(2, H, P, N)
+    outs = []
+    for use_pallas in (True, False):
+        state = ssm.clone()
+        outs.append(blocks._ssd_heads(cfg.replace(use_pallas=use_pallas), z,
+                                      x, Bm, Cm, dt, *small, state) + (state,))
+    assert calls == [(2, H, P)]
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
 
 
 def test_init_and_conversion_match_the_jax_tree():
